@@ -1,7 +1,7 @@
 """Achievable-AUC ceilings for the synthetic behaviour stream.
 
-VERDICT-r2 #8: DIN/DIEN's eval AUC was compared loosely against the
-*Criteo* oracle; the behaviour stream has its own label process and its
+DIN/DIEN's eval AUC needs its own denominator, not the *Criteo*
+oracle: the behaviour stream has its own label process and its
 own Bayes optimum. This script computes the denominators the modelzoo
 table uses for the "% of achievable lift" column:
 
@@ -39,7 +39,7 @@ sys.path.insert(0, ".")
 
 import numpy as np
 
-from deeprec_tpu.data.behavior import SyntheticBehavior, _rank_auc
+from deeprec_jax.data.behavior import SyntheticBehavior, _rank_auc
 
 
 def main(n_batches: int = 50, batch_size: int = 4096, **gen_kwargs):

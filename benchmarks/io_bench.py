@@ -2,8 +2,8 @@
 
 The reference's published CPU numbers are input-bound (tf.data CSV at
 31-120 steps/s on 8-32 vCPUs, modelzoo READMEs); this pins what OUR
-input path sustains per host core so the datagen-bound modelzoo rows in
-docs/BENCH.md have a denominator. Both readers produce IDENTICAL batches
+input path sustains per host core, the denominator of any
+datagen-bound training number. Both readers produce IDENTICAL batches
 (shared FNV token hash, fuzzed in tests/test_criteo_fidelity.py) — this
 measures speed only.
 
@@ -55,7 +55,7 @@ def main():
     ap.add_argument("--batch", type=int, default=4096)
     args = ap.parse_args()
 
-    from deeprec_tpu.data.criteo import read_criteo, read_criteo_native
+    from deeprec_jax.data.criteo import read_criteo, read_criteo_native
 
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "criteo.tsv")

@@ -1,4 +1,4 @@
-"""Sequence-model fidelity bisect (VERDICT-r2 #8, second half).
+"""Sequence-model fidelity bisect.
 
 DIN/DIEN eval AUC (~0.63 at a few thousand steps) sits between the
 behaviour stream's bias-only ceiling (0.635) and its bias+repeat floor
@@ -12,8 +12,8 @@ bound and slow". This experiment separates the two:
   * Arm RANDOM: same architecture, same optimizer, 0.05-normal init
     (exactly the modelzoo initializer).
 
-Both arms train the *plain flax DIN module* (the same class the modelzoo
-trainer wraps, deeprec_tpu/models/sequence.py) over a simple dense
+Both arms train the *plain DIN module* (the same class the modelzoo
+trainer wraps, deeprec_jax/models/sequence.py) over a simple dense
 embedding matrix — the EV engine is deliberately bypassed so the verdict
 is about the ARCHITECTURE, not the table machinery (the engine has its
 own equality tests).
@@ -28,7 +28,6 @@ Interpretation:
     representations — a real fidelity bug.
 
 Run: python benchmarks/sequence_fidelity.py [--steps N] [--model din|dien]
-Results recorded in docs/BENCH.md (sequence-model section).
 """
 import argparse
 import json
@@ -42,8 +41,8 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 
-from deeprec_tpu.data.behavior import SyntheticBehavior, _rank_auc
-from deeprec_tpu.models import sequence
+from deeprec_jax.data.behavior import SyntheticBehavior, _rank_auc
+from deeprec_jax.models import sequence
 
 N_ITEMS = 50_000
 N_CATES = 200

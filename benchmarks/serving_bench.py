@@ -1,18 +1,17 @@
 """Serving latency/throughput microbenchmark: Predictor.predict on one
-chip (the Triton-shim role). Prints one JSON line per batch size."""
+device (the Triton-shim role). Prints one JSON line per batch size."""
 import argparse
 import json
 import os
-import shutil
 import sys
 import time
 
 sys.path.insert(0, os.path.abspath(os.path.join(os.path.dirname(__file__), "..")))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.join(os.path.dirname(__file__), "..", ".jax_cache"))
 
 
 def main():
+    from deeprec_jax.utils import compile_cache
+    compile_cache.enable()
     ap = argparse.ArgumentParser()
     ap.add_argument("--batches", default="256,1024,4096")
     ap.add_argument("--capacity", type=int, default=1 << 18)
@@ -32,14 +31,14 @@ def main():
     import jax
     import optax
 
-    import deeprec_tpu as dr
-    from deeprec_tpu import feature_column as fc
-    from deeprec_tpu.checkpoint import CheckpointManager
-    from deeprec_tpu.data.criteo import CAT_NAMES, DENSE_NAMES, SyntheticCriteo
-    from deeprec_tpu.models import ctr
-    from deeprec_tpu.optim import sparse as sopt
-    from deeprec_tpu.serving import Predictor
-    from deeprec_tpu.train.trainer import Trainer
+    import deeprec_jax as dr
+    from deeprec_jax import feature_column as fc
+    from deeprec_jax.checkpoint import CheckpointManager
+    from deeprec_jax.data.criteo import CAT_NAMES, DENSE_NAMES, SyntheticCriteo
+    from deeprec_jax.models import ctr
+    from deeprec_jax.optim import sparse as sopt
+    from deeprec_jax.serving import Predictor
+    from deeprec_jax.train.trainer import Trainer
 
     def parts():
         numeric = [fc.NumericColumn(n, log_normalize=True) for n in DENSE_NAMES]
@@ -52,8 +51,8 @@ def main():
                          bottom_units=(512, 256), top_units=(1024, 512))
         return numeric, coll, model
 
-    ckdir = "/tmp/serving_bench_ckpt"
-    shutil.rmtree(ckdir, ignore_errors=True)
+    import tempfile
+    ckdir = tempfile.mkdtemp(prefix="serving_bench_ckpt_")
     numeric, coll, model = parts()
     tr = Trainer(model, numeric, {"emb": coll},
                  {"emb": sopt.sparse_adagrad(0.05)}, optax.adagrad(0.05))
@@ -67,7 +66,7 @@ def main():
     pred = Predictor(m2, n2, {"emb": c2}, ckdir)
     predictors = [("serving_latency_ms", pred)]
     if args.tiered:
-        from deeprec_tpu.serving import TieredPredictor
+        from deeprec_jax.serving import TieredPredictor
         n3, c3, m3 = parts()
         predictors.append(("serving_tiered_latency_ms", TieredPredictor(
             m3, n3, {"emb": c3}, ckdir, device_row_budget=args.tiered)))
@@ -94,7 +93,7 @@ def main():
         # Triton dynamic_batching effect server.py reproduces.
         import threading
 
-        from deeprec_tpu.serving.server import PredictService
+        from deeprec_jax.serving.server import PredictService
 
         K, R = args.concurrency, args.conc_reps
         bs = int(args.batches.split(",")[0])

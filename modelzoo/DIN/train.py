@@ -11,9 +11,9 @@ import sys
 sys.path.insert(0, os.path.abspath(
     os.path.join(os.path.dirname(__file__), "..", "..")))
 
-from deeprec_tpu import Initializer, feature_column as fc
-from deeprec_tpu.models import sequence
-from deeprec_tpu.train import cli
+from deeprec_jax import Initializer, feature_column as fc
+from deeprec_jax.models import sequence
+from deeprec_jax.train import cli
 
 MAX_LEN = 32
 
@@ -65,8 +65,8 @@ if __name__ == "__main__":
     # ceiling of the stream; history co-occurrence learns slower) —
     # representation-bound, not architecture-bound: with oracle item
     # vectors planted as init the same module reaches 0.770 (98% of the
-    # feature-observable ceiling) in 2k steps. See docs/BENCH.md
-    # "Sequence models: fidelity bisect" + benchmarks/sequence_fidelity.py.
+    # feature-observable ceiling) in 2k steps. See
+    # benchmarks/sequence_fidelity.py.
     p.set_defaults(optimizer="adam", learning_rate=0.002,
                    # behaviour sequences dedup poorly: most
                    # history ids are unique within a batch

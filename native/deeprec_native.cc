@@ -1,7 +1,7 @@
-// deeprec_tpu native host runtime: sharded host KV row store + batched
+// deeprec_jax native host runtime: sharded host KV row store + batched
 // Criteo parser.
 //
-// TPU-native counterparts of the reference's host-side C++ (built from
+// Counterparts of the reference's host-side C++ (built from
 // scratch, same roles):
 //   * HostKV  — the DRAM/PMEM storage tier behind EmbeddingVariable
 //     multi-tier storage (reference: tensorflow/core/framework/embedding/
@@ -418,7 +418,7 @@ int64_t criteo_parse(const char* buf, int64_t len, int64_t max_rows,
 // Role: the reference keeps the EmbeddingVariable key index in CPU hash
 // maps probed inside the gather/apply kernels (tensorflow/core/framework/
 // embedding/dense_hash_map.h, lockless_hash_map.h:41); this resolver plays
-// the same role for the TPU engine, but *pipelined*: while the device
+// the same role for the device engine, but *pipelined*: while the device
 // executes step N, the host resolves step N+1's ids into
 // (unique keys, dense row slots, inverse permutation, created flags,
 // multiplicities) so the jitted step needs NO on-device dedup sort and NO
@@ -980,7 +980,7 @@ int64_t hidx_resolve(HostIndexResolver* r, const int64_t* keys, int64_t n,
 }
 
 // Resolve directly into the single H2D "wire" byte buffer the jitted step
-// decodes (deeprec_tpu/host_index.py ResolvedWire). Layout (little-endian,
+// decodes (deeprec_jax/host_index.py ResolvedWire). Layout (little-endian,
 // U = u_out, n = batch width):
 //   [slots|created<<30 : i32 U][key hi : i32 U][key lo : i32 U]
 //   [counts : i32 U, only if with_counts]

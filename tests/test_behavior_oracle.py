@@ -1,12 +1,12 @@
 """Behaviour-stream oracle: the '% of achievable lift' denominator.
 
-VERDICT-r2 #8: the sequence models were judged against the Criteo
-oracle; this pins the behaviour stream's own ceilings so the modelzoo
+The sequence models need their own oracle, not the Criteo one; this
+pins the behaviour stream's own ceilings so the modelzoo
 table can state what fraction of the achievable lift DIN/DIEN capture.
 """
 import numpy as np
 
-from deeprec_tpu.data.behavior import SyntheticBehavior, _rank_auc, oracle_auc
+from deeprec_jax.data.behavior import SyntheticBehavior, _rank_auc, oracle_auc
 
 
 def test_rank_auc_exact():
@@ -22,7 +22,7 @@ def test_oracle_beats_models_and_is_stable():
     b = oracle_auc(n_batches=8, batch_size=4096, seed=4)
     # the ceiling is a property of the label process, not the sample
     assert abs(a - b) < 0.01
-    # recorded value 0.821 (docs/BENCH.md); noise=0.5 pre-sigmoid keeps
+    # recorded value 0.821; noise=0.5 pre-sigmoid keeps
     # it far from 1.0 — a near-1.0 oracle would mean the stream lost its
     # irreducible noise and every model AUC comparison breaks
     assert 0.79 < a < 0.85
@@ -51,7 +51,7 @@ def test_ceiling_ladder_ordering():
     c = ceilings(n_batches=6, batch_size=4096)
     assert c["bayes"] > c["observable"] >= c["two_tower"] > 0.5
     assert c["two_tower"] > c["bias_repeat"] > c["bias_only"] > 0.55
-    # recorded values (docs/BENCH.md) within sampling tolerance
+    # recorded values within sampling tolerance
     for k, v in {"bayes": 0.821, "observable": 0.775, "two_tower": 0.773,
                  "bias_repeat": 0.669, "bias_only": 0.635}.items():
         assert abs(c[k] - v) < 0.012, (k, c[k], v)

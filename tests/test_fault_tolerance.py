@@ -23,11 +23,11 @@ import jax
 jax.config.update("jax_platforms", "cpu")
 
 sys.path.insert(0, {repo!r})
-from deeprec_tpu.data.criteo import CAT_NAMES
+from deeprec_jax.data.criteo import CAT_NAMES
 
 # Criteo-format training files (written once by the test)
 from modelzoo.DCN.train import build
-from deeprec_tpu.train import cli
+from deeprec_jax.train import cli
 
 args = cli.base_parser("t").parse_args([
     "--steps", "100000",  # run "forever": the queue draining ends the run
@@ -72,7 +72,6 @@ def test_worker_killed_mid_training_resumes(tmp_path):
            if k not in ("JAX_PLATFORMS", "XLA_FLAGS")}
     env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONPATH"] = REPO
-    env["JAX_COMPILATION_CACHE_DIR"] = os.path.join(REPO, ".jax_cache")
 
     # worker 1: SIGKILL once it has saved at least one checkpoint and
     # claimed some work

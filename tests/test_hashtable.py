@@ -1,13 +1,13 @@
-"""Hash table engine tests — the TPU analog of the reference's KV-backend
+"""Hash table engine tests — the analog of the reference's KV-backend
 coverage in embedding_variable_ops_test.cc (insert/lookup/snapshot)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from deeprec_tpu.sparse import hashtable as ht
-from deeprec_tpu.sparse import keys as K
-from deeprec_tpu.ops.unique import unique
+from deeprec_jax.sparse import hashtable as ht
+from deeprec_jax.sparse import keys as K
+from deeprec_jax.ops.unique import unique
 
 
 def _keys(arr):

@@ -1,7 +1,7 @@
 """Growth compile-ahead (Trainer.prewarm_grow).
 
-The soak (docs/BENCH.md) showed capacity-growth fences stalling 0.6-1.4
-s/step on XLA recompiles. prewarm_grow compiles the 2x-capacity step in a
+Capacity growth is a static-shape change, so the post-growth step is a
+full XLA recompile. prewarm_grow compiles the 2x-capacity step in a
 background thread against the persistent compilation cache while training
 continues; the post-growth rejit then lowers identical HLO and hits the
 cache. These tests pin the contract: the clone-trace must not disturb the
@@ -16,11 +16,12 @@ import numpy as np
 import optax
 import pytest
 
-import deeprec_tpu as dr
-from deeprec_tpu import feature_column as fc
-from deeprec_tpu.models import ctr
-from deeprec_tpu.optim import sparse as sopt
-from deeprec_tpu.train.trainer import Trainer
+import deeprec_jax as dr
+from deeprec_jax import feature_column as fc
+from deeprec_jax.models import ctr
+from deeprec_jax.optim import sparse as sopt
+from deeprec_jax.train.trainer import Trainer
+from deeprec_jax.utils import compile_cache
 
 CATS = ["C1", "C2"]
 
@@ -81,7 +82,7 @@ def test_prewarm_caches_grown_step_without_touching_live_trainer(tmp_path):
         assert 0.5 <= lf < 0.7, lf
 
         packed = tr.prepare_batch(batch_of([1, 2]))
-        warmed = tr.prewarm_grow(state, packed, cache_dir=cache)
+        warmed = tr.prewarm_grow(state, packed)
         assert warmed == ["emb"]
         # the clone's config mutation must not leak into the live trainer
         assert tr.collections["emb"].config.capacity == 256
@@ -98,7 +99,7 @@ def test_prewarm_caches_grown_step_without_touching_live_trainer(tmp_path):
         assert entries, "prewarm thread produced no train_step cache entry"
 
         # same signature is warmed once
-        assert tr.prewarm_grow(state, packed, cache_dir=cache) == []
+        assert tr.prewarm_grow(state, packed) == []
 
         # growth then training proceeds normally on the grown table
         state = _fill_to(tr, state, 24, start=72)
@@ -111,9 +112,7 @@ def test_prewarm_caches_grown_step_without_touching_live_trainer(tmp_path):
         assert np.isfinite(m)
     finally:
         # back to the suite-wide cache (conftest) for the remaining tests
-        import os as _os
-        jax.config.update("jax_compilation_cache_dir", _os.path.join(
-            _os.path.dirname(__file__), "..", ".jax_cache"))
+        compile_cache.enable()
         jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
         cc.reset_cache()
 
@@ -124,5 +123,20 @@ def test_prewarm_noop_below_threshold_and_for_variants():
     packed = tr.prepare_batch(batch_of([1, 2]))
     assert tr.prewarm_grow(state, packed) == []  # near-empty table
     # restore the suite-wide cache dir (conftest) for later tests
-    jax.config.update("jax_compilation_cache_dir", os.path.join(
-        os.path.dirname(__file__), "..", ".jax_cache"))
+    compile_cache.enable()
+
+
+def test_compile_cache_dir_rule(monkeypatch, tmp_path):
+    """JAX_COMPILATION_CACHE_DIR wins and nothing overrides it in code;
+    otherwise the cache is the checkout's .jax_cache."""
+    before = jax.config.jax_compilation_cache_dir
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    assert compile_cache.cache_dir() == str(tmp_path)
+    assert compile_cache.enable() == str(tmp_path)
+    assert jax.config.jax_compilation_cache_dir == before
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR")
+    repo = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+    assert compile_cache.cache_dir() == os.path.join(repo, ".jax_cache")
+    assert compile_cache.enable() == os.path.join(repo, ".jax_cache")
+    assert jax.config.jax_compilation_cache_dir == os.path.join(
+        repo, ".jax_cache")

@@ -7,17 +7,17 @@ import numpy as np
 import optax
 import pytest
 
-import deeprec_tpu as dr
-from deeprec_tpu import feature_column as fc
-from deeprec_tpu.data.criteo import CAT_NAMES, DENSE_NAMES, SyntheticCriteo
-from deeprec_tpu.models import ctr
-from deeprec_tpu.optim import sparse as sopt
-from deeprec_tpu.parallel import sharded
-from deeprec_tpu.parallel.trainer import ShardedTrainer, make_mesh
-from deeprec_tpu.sparse import embedding_var as ev
-from deeprec_tpu.sparse import keys as K
-from deeprec_tpu.train import metrics as metrics_lib
-from deeprec_tpu.train.trainer import Trainer
+import deeprec_jax as dr
+from deeprec_jax import feature_column as fc
+from deeprec_jax.data.criteo import CAT_NAMES, DENSE_NAMES, SyntheticCriteo
+from deeprec_jax.models import ctr
+from deeprec_jax.optim import sparse as sopt
+from deeprec_jax.parallel import sharded
+from deeprec_jax.parallel.trainer import ShardedTrainer, make_mesh
+from deeprec_jax.sparse import embedding_var as ev
+from deeprec_jax.sparse import keys as K
+from deeprec_jax.train import metrics as metrics_lib
+from deeprec_jax.train.trainer import Trainer
 
 N_CAT = 6
 EMB_DIM = 8
@@ -118,23 +118,28 @@ def test_exchange_matches_local_lookup():
 
 def test_sharded_training_lifts_auc():
     numeric, emb_cols, coll, model = _setup(capacity=512)  # local cap/shard
+    # 4 of the 8 virtual devices: XLA:CPU runs each device's all_to_all on
+    # a shared thread pool, and on a loaded host an 8-way rendezvous can
+    # miss its 40 s termination timeout (the process aborts)
     tr = ShardedTrainer(
         model, numeric, {"emb": coll},
         {"emb": sopt.sparse_adagrad(0.5, initial_accumulator_value=0.01)},
-        optax.adam(3e-3), mesh=make_mesh())
-    # 240 steps, window = the last 120: the guide-table zipf sampler
-    # (data/criteo.py) draws a slightly different concrete stream than the
-    # old rejection sampler; this config crosses 0.55 between steps 120
-    # and 180 (0.516@60 -> 0.534@120 -> 0.557@180 -> 0.574@240)
+        optax.adam(3e-3), mesh=make_mesh(4))
+    # lift = AUC of steps 121-240 over AUC of steps 1-40. Across init
+    # draws the first window reads 0.50-0.51, the late one 0.545-0.57
+    # (lift 0.04-0.06) and held-out eval 0.58-0.59
     batches = _batches(240)
     state = tr.init(jax.random.key(0), batches[0])
     for i, b in enumerate(batches):
         state = tr.train_step(state, b)
-        if i == 119:
+        if i == 39:
+            early = metrics_lib.summarize(state.metrics)
+        if i in (39, 119):
             state = tr.reset_metrics(state)
-    s = metrics_lib.summarize(state.metrics)
-    assert s["examples"] == 120 * 256
-    assert s["auc"] > 0.55, s
+    late = metrics_lib.summarize(state.metrics)
+    assert early["examples"] == 40 * 256
+    assert late["examples"] == 120 * 256
+    assert late["auc"] > early["auc"] + 0.02, (early, late)
 
     m = metrics_lib.create()
     for b in _batches(8, seed=42):

@@ -10,18 +10,19 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-import deeprec_tpu as dr
-from deeprec_tpu import feature_column as fc
-from deeprec_tpu.config import CounterFilter
-from deeprec_tpu.models import ctr
-from deeprec_tpu.optim import sparse as sopt
-from deeprec_tpu.parallel.trainer import ShardedTrainer, make_mesh
-from deeprec_tpu.train.trainer import Trainer
+import deeprec_jax as dr
+from deeprec_jax import feature_column as fc
+from deeprec_jax.config import CounterFilter
+from deeprec_jax.models import ctr
+from deeprec_jax.optim import sparse as sopt
+from deeprec_jax.parallel.trainer import ShardedTrainer, make_mesh
+from deeprec_jax.train.trainer import Trainer
 
 CATS = ["C1", "C2"]
 
 
-def _make(trainer_cls, capacity=256, n_dev=None, filter_freq=0, **kw):
+def _make(trainer_cls, capacity=256, n_dev=None, filter_freq=0,
+          sparse_lr=0.1, **kw):
     ev_kw = {}
     if filter_freq:
         ev_kw["counter_filter"] = CounterFilter(filter_freq)
@@ -32,7 +33,7 @@ def _make(trainer_cls, capacity=256, n_dev=None, filter_freq=0, **kw):
     model = ctr.DCN(emb_names=CATS, cross_layers=1, deep_units=(16,))
     common = dict(model=model, numeric_columns=[fc.NumericColumn("I1")],
                   collections={"emb": coll},
-                  sparse_optimizers={"emb": sopt.sparse_adagrad(0.1)},
+                  sparse_optimizers={"emb": sopt.sparse_adagrad(sparse_lr)},
                   dense_optimizer=optax.adagrad(0.05))
     if trainer_cls is ShardedTrainer:
         common["mesh"] = make_mesh(n_dev or 4)
@@ -102,27 +103,30 @@ def test_health_reports_unique_saturation():
 
 
 def _learnable_batch(rng, bs=32, vocab=64):
-    """Labels are a deterministic function of the ids — memorizable through
-    the embeddings, so loss decrease is signal, not noise."""
+    """Labels are a deterministic function of one id — memorizable through
+    its embedding, so loss decrease is signal, not noise."""
     b = {"I1": rng.normal(size=bs).astype(np.float32)}
     for n in CATS:
         b[n] = rng.integers(0, vocab, bs).astype(np.int64)
-    b["label"] = ((b["C1"] + b["C2"]) % 2).astype(np.float32)
+    b["label"] = (b["C1"] % 2).astype(np.float32)
     return b
 
 
 def test_sharded_microbatch_runs_and_learns():
-    tr = _make(ShardedTrainer, n_dev=4, microbatches=2)
+    tr = _make(ShardedTrainer, n_dev=4, microbatches=2, sparse_lr=0.5)
     rng = np.random.default_rng(3)
     state = tr.init(jax.random.key(0), _learnable_batch(rng))
-    losses = []
-    for i in range(30):
+    losses = []  # mean loss of each 10-step window
+    for i in range(40):
         state = tr.train_step(state, _learnable_batch(rng))
-        losses.append(float(state.metrics.loss_sum / state.metrics.count))
+        if (i + 1) % 10 == 0:
+            assert int(state.metrics.count) == 10 * 32
+            losses.append(float(state.metrics.loss_sum / state.metrics.count))
+            state = tr.reset_metrics(state)
     assert np.isfinite(losses).all()
-    assert int(state.metrics.count) == 30 * 32
     # per-microbatch sparse updates + accumulated dense grads still learn
-    assert np.mean(losses[-3:]) < np.mean(losses[:3]) - 0.01
+    # (the last window sits >0.1 below the first across init draws)
+    assert losses[-1] < losses[0] - 0.05, losses
 
 
 def test_sharded_microbatch_matches_single_batch_metrics_shape():
@@ -143,7 +147,7 @@ def test_freq_semantics_identical_local_vs_sharded():
     """CounterFilter admission must not change when a run adds --mesh: freq
     counts within-batch MULTIPLICITY (reference AddFreq(count)) on BOTH
     trainers — the exchange routes the per-requester counts to the owner."""
-    from deeprec_tpu.checkpoint.saver import table_snapshot_host
+    from deeprec_jax.checkpoint.saver import table_snapshot_host
 
     ids = np.asarray([5, 5, 5, 7, 7, 9], np.int64)  # multiplicities 3/2/1
     tr_l = _make(Trainer, filter_freq=2)
@@ -184,12 +188,12 @@ def test_bf16_exchange_wire_matches_f32_closely():
         return ShardedTrainer(
             model=model, numeric_columns=[fc.NumericColumn("I1")],
             collections={"emb": coll},
-            sparse_optimizers={"emb": sopt.sparse_adagrad(0.1)},
+            sparse_optimizers={"emb": sopt.sparse_adagrad(0.5)},
             dense_optimizer=optax.adagrad(0.05), mesh=make_mesh(4))
 
     tr_f32, tr_b16 = make(None), make("bfloat16")
     rng = np.random.default_rng(3)
-    batches = [_batch(rng, bs=64, vocab=500) for _ in range(12)]
+    batches = [_learnable_batch(rng, bs=64) for _ in range(24)]
     s32 = tr_f32.init(jax.random.key(0), batches[0])
     s16 = tr_b16.init(jax.random.key(0), batches[0])
     first = last = None

@@ -1,23 +1,23 @@
 """Host-tier serving: a model larger than the device row budget serves
 from device(hot) + host-DRAM(cold) with predictions identical to all-HBM.
 
-Round-3 closure of VERDICT item 3 (reference: CPU-resident EV serving via
+Reference: CPU-resident EV serving via
 the Triton shim, triton/tensorflow_backend_tf.cc — cold rows never need
-accelerator residency)."""
+accelerator residency."""
 import numpy as np
 import optax
 import pytest
 
 import jax
 
-import deeprec_tpu as dr
-from deeprec_tpu import feature_column as fc
-from deeprec_tpu.checkpoint import CheckpointManager
-from deeprec_tpu.data.criteo import CAT_NAMES, DENSE_NAMES, SyntheticCriteo
-from deeprec_tpu.models import ctr
-from deeprec_tpu.optim import sparse as sopt
-from deeprec_tpu.serving import Predictor, TieredPredictor
-from deeprec_tpu.train.trainer import Trainer
+import deeprec_jax as dr
+from deeprec_jax import feature_column as fc
+from deeprec_jax.checkpoint import CheckpointManager
+from deeprec_jax.data.criteo import CAT_NAMES, DENSE_NAMES, SyntheticCriteo
+from deeprec_jax.models import ctr
+from deeprec_jax.optim import sparse as sopt
+from deeprec_jax.serving import Predictor, TieredPredictor
+from deeprec_jax.train.trainer import Trainer
 
 N_CAT, N_DENSE = 4, 3
 
