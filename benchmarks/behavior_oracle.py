@@ -39,7 +39,7 @@ sys.path.insert(0, ".")
 
 import numpy as np
 
-from deeprec_jax.data.behavior import SyntheticBehavior, _rank_auc
+from deeprec_tpu.data.behavior import SyntheticBehavior, _rank_auc
 
 
 def main(n_batches: int = 50, batch_size: int = 4096, **gen_kwargs):

@@ -55,7 +55,7 @@ def main():
     ap.add_argument("--batch", type=int, default=4096)
     args = ap.parse_args()
 
-    from deeprec_jax.data.criteo import read_criteo, read_criteo_native
+    from deeprec_tpu.data.criteo import read_criteo, read_criteo_native
 
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "criteo.tsv")

@@ -13,7 +13,7 @@ bound and slow". This experiment separates the two:
     (exactly the modelzoo initializer).
 
 Both arms train the *plain DIN module* (the same class the modelzoo
-trainer wraps, deeprec_jax/models/sequence.py) over a simple dense
+trainer wraps, deeprec_tpu/models/sequence.py) over a simple dense
 embedding matrix — the EV engine is deliberately bypassed so the verdict
 is about the ARCHITECTURE, not the table machinery (the engine has its
 own equality tests).
@@ -41,8 +41,8 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 
-from deeprec_jax.data.behavior import SyntheticBehavior, _rank_auc
-from deeprec_jax.models import sequence
+from deeprec_tpu.data.behavior import SyntheticBehavior, _rank_auc
+from deeprec_tpu.models import sequence
 
 N_ITEMS = 50_000
 N_CATES = 200

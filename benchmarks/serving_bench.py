@@ -10,7 +10,7 @@ sys.path.insert(0, os.path.abspath(os.path.join(os.path.dirname(__file__), "..")
 
 
 def main():
-    from deeprec_jax.utils import compile_cache
+    from deeprec_tpu.utils import compile_cache
     compile_cache.enable()
     ap = argparse.ArgumentParser()
     ap.add_argument("--batches", default="256,1024,4096")
@@ -31,14 +31,14 @@ def main():
     import jax
     import optax
 
-    import deeprec_jax as dr
-    from deeprec_jax import feature_column as fc
-    from deeprec_jax.checkpoint import CheckpointManager
-    from deeprec_jax.data.criteo import CAT_NAMES, DENSE_NAMES, SyntheticCriteo
-    from deeprec_jax.models import ctr
-    from deeprec_jax.optim import sparse as sopt
-    from deeprec_jax.serving import Predictor
-    from deeprec_jax.train.trainer import Trainer
+    import deeprec_tpu as dr
+    from deeprec_tpu import feature_column as fc
+    from deeprec_tpu.checkpoint import CheckpointManager
+    from deeprec_tpu.data.criteo import CAT_NAMES, DENSE_NAMES, SyntheticCriteo
+    from deeprec_tpu.models import ctr
+    from deeprec_tpu.optim import sparse as sopt
+    from deeprec_tpu.serving import Predictor
+    from deeprec_tpu.train.trainer import Trainer
 
     def parts():
         numeric = [fc.NumericColumn(n, log_normalize=True) for n in DENSE_NAMES]
@@ -66,7 +66,7 @@ def main():
     pred = Predictor(m2, n2, {"emb": c2}, ckdir)
     predictors = [("serving_latency_ms", pred)]
     if args.tiered:
-        from deeprec_jax.serving import TieredPredictor
+        from deeprec_tpu.serving import TieredPredictor
         n3, c3, m3 = parts()
         predictors.append(("serving_tiered_latency_ms", TieredPredictor(
             m3, n3, {"emb": c3}, ckdir, device_row_budget=args.tiered)))
@@ -93,7 +93,7 @@ def main():
         # Triton dynamic_batching effect server.py reproduces.
         import threading
 
-        from deeprec_jax.serving.server import PredictService
+        from deeprec_tpu.serving.server import PredictService
 
         K, R = args.concurrency, args.conc_reps
         bs = int(args.batches.split(",")[0])

@@ -48,11 +48,17 @@ if REPO not in sys.path:
 
 # Parity tolerances. Both sides compute in float32 at "highest" matmul
 # precision, so they differ only by the order of floating-point sums
-# (XLA:GPU and XLA:CPU reduce in different trees): ~1e-7 relative per op,
-# grown through 3 Adagrad steps. 1e-4 leaves two orders of magnitude over
-# that, while a racing scatter (a duplicate index behind a unique_indices
-# promise) moves a row by a whole update, ~1e-2 at these learning rates.
-LOSS_RTOL = 1e-4
+# (XLA:GPU and XLA:CPU reduce in different trees), grown through 3 Adagrad
+# steps. On an H100 that left a loss gap of 1.7e-7 relative, while the
+# same steps at default precision (TF32 towers) moved the loss by 4.6e-6:
+# the loss limit sits between the two, so a tower silently computed in a
+# lower precision fails it, and the default-precision run must fail it as
+# a control. Parameters and rows keep 1e-4: at "highest" they already
+# differ by up to 1.4e-5 (Adagrad's first steps scale tiny gradient
+# differences up), so they do not separate the precisions, but a racing
+# scatter (a duplicate index behind a unique_indices promise) moves a row
+# by a whole update, ~1e-2 at these learning rates.
+LOSS_RTOL = 1e-6
 PARAM_ATOL = 1e-4
 ROW_ATOL = 1e-4
 # served click probabilities: one forward pass, no optimizer in between
@@ -78,7 +84,7 @@ def dlrm():
 
 
 def dlrm_args(*flags):
-    from deeprec_jax.train import cli
+    from deeprec_tpu.train import cli
     return cli.base_parser("chip smoke").parse_args(
         ["--synthetic", *map(str, flags)])
 
@@ -122,7 +128,7 @@ def rows_maxdiff(ra, rb):
 
 def phase_device():
     import jax
-    from deeprec_jax.utils import compile_cache, native
+    from deeprec_tpu.utils import compile_cache, native
     devs = jax.devices()
     log("device", f"jax {jax.__version__}; backend {jax.default_backend()}; "
                   f"device_kind {devs[0].device_kind}; count {len(devs)}")
@@ -139,8 +145,8 @@ def phase_train(engine, workdir, steps=20, batch=4096, capacity=None,
     """modelzoo DLRM through ``cli.run`` on one index engine ("host" or
     "device"); returns the checkpoint directory it wrote."""
     import jax
-    from deeprec_jax.train import cli
-    from deeprec_jax.train.summary import read_events
+    from deeprec_tpu.train import cli
+    from deeprec_tpu.train.summary import read_events
 
     tag = f"train/{engine}"
     ckpt = os.path.join(workdir, f"ckpt_{engine}")
@@ -209,7 +215,7 @@ def _train_steps(engine, batches, device=None, precision="highest",
     """``len(batches)`` train steps of modelzoo DLRM (exact dedup) on one
     engine; returns (trainer, state, per-step losses, dense params)."""
     import jax
-    from deeprec_jax.train import cli
+    from deeprec_tpu.train import cli
 
     flags = ["--batch_size", len(batches[0]["label"]), "--capacity",
              capacity, "--max_unique_ratio", 0, "--mesh", mesh]
@@ -254,7 +260,7 @@ def _check(tag, diffs):
 
 def phase_parity(batch=512, steps=3, capacity=1 << 16):
     import jax
-    from deeprec_jax.data.criteo import SyntheticCriteo
+    from deeprec_tpu.data.criteo import SyntheticCriteo
 
     cpu = jax.devices("cpu")[0]
     batches = list(SyntheticCriteo(batch_size=batch, seed=5).take(steps))
@@ -275,12 +281,18 @@ def phase_parity(batch=512, steps=3, capacity=1 << 16):
     _check("parity", _compare("parity", runs["host", "gpu"],
                               runs["device", "gpu"],
                               "host-index vs device-index engine"))
-    # the dense towers at default precision (TF32 on the card may apply):
-    # reported, not checked — the number a precision stance starts from
+    # the dense towers at default precision (TF32 on the card): the number
+    # a precision stance starts from, and the control that shows the loss
+    # limit can tell the precisions apart (the CPU has no TF32)
     default = _train_steps("device", batches, precision="default",
                            capacity=capacity)
-    _compare("parity", default, runs["device", "cpu"],
-             "device engine at default precision vs CPU at highest")
+    dl = _compare("parity", default, runs["device", "cpu"],
+                  "device engine at default precision vs CPU at highest")[0]
+    if jax.default_backend() == "gpu" and dl <= LOSS_RTOL:
+        raise AssertionError(
+            f"parity: default precision is within the loss tolerance "
+            f"({dl:.3e} <= {LOSS_RTOL}), so it cannot tell whether the "
+            f'"highest" runs ran at highest precision')
 
 
 def _post(port, payload):
@@ -294,9 +306,9 @@ def _post(port, payload):
 
 def phase_serve(ckpt, n=8):
     import jax
-    from deeprec_jax.data.criteo import SyntheticCriteo
-    from deeprec_jax.serving.predictor import Predictor
-    from deeprec_jax.serving.server import make_server
+    from deeprec_tpu.data.criteo import SyntheticCriteo
+    from deeprec_tpu.serving.predictor import Predictor
+    from deeprec_tpu.serving.server import make_server
 
     b = next(iter(SyntheticCriteo(batch_size=n, seed=123)))
     cols = {k: np.asarray(v) for k, v in b.items() if k != "label"}
@@ -370,27 +382,44 @@ def _time_loop(fn, args, iters):
     return (time.perf_counter() - t0) / (iters + 1) * 1e3
 
 
-def phase_gather(rows=1 << 21, n=32768, batch=4096, width=16, dim_pool=128,
-                 valid_frac=0.7, iters=200):
+def phase_gather(rows=1 << 21, n=32768, n_big=1 << 19, batch=4096,
+                 width=16, dim_pool=128, valid_frac=0.7, iters=200):
     """XLA's plain row gather and gather + masked mean-pool: the times a
-    hand-written gather kernel would have to beat."""
+    hand-written gather kernel would have to beat. Each time is printed
+    beside the timing loop's own cost per iteration (a one-row gather): a
+    time within 3x of it is overhead-bound and says little of the gather,
+    so D=16 is also timed over ``n_big`` rows."""
     import jax
     import jax.numpy as jnp
 
     rng = np.random.default_rng(0)
     stride = jnp.int32(7919)  # each iteration reads other rows
-    for d in (16, 128):
+
+    def gather_ms(values, slots):
+        return _time_loop(lambda i, v, s: v[(s + i * stride) % rows],
+                          (values, slots), iters)
+
+    def versus_loop(ms):
+        return (f"{ms / loop_ms:.1f}x the loop's own {loop_ms:.4f} ms"
+                + (", overhead-bound" if ms < 3 * loop_ms else ""))
+
+    loop_ms = None
+    for d, sizes in ((16, (n, n_big)), (128, (n,))):
         values = jax.random.normal(jax.random.key(d), (rows, d), jnp.float32)
-        slots_np = rng.integers(0, rows, n).astype(np.int32)
-        slots = jnp.asarray(slots_np)
-        got = np.asarray(jax.jit(lambda v, s: v[s])(values, slots))
-        np.testing.assert_array_equal(
-            got, np.asarray(values)[slots_np])
-        ms = _time_loop(lambda i, v, s: v[(s + i * stride) % rows],
-                        (values, slots), iters)
-        gbs = 2 * n * d * 4 / ms / 1e6  # rows read + rows written
-        log("gather", f"values[slots] D={d}: {n} random rows of {rows}: "
-                      f"{ms:.4f} ms, {gbs:.1f} GB/s (read+write)")
+        if loop_ms is None:
+            loop_ms = gather_ms(values, jnp.zeros((1,), jnp.int32))
+            log("gather", f"timing loop alone (one-row gather): "
+                          f"{loop_ms:.4f} ms per iteration")
+        for m in sizes:
+            slots_np = rng.integers(0, rows, m).astype(np.int32)
+            slots = jnp.asarray(slots_np)
+            got = np.asarray(jax.jit(lambda v, s: v[s])(values, slots))
+            np.testing.assert_array_equal(got, np.asarray(values)[slots_np])
+            ms = gather_ms(values, slots)
+            gbs = 2 * m * d * 4 / ms / 1e6  # rows read + rows written
+            log("gather", f"values[slots] D={d}: {m} random rows of {rows}: "
+                          f"{ms:.4f} ms, {gbs:.1f} GB/s (read+write; "
+                          f"{versus_loop(ms)})")
         del values
 
     d = dim_pool
@@ -414,7 +443,7 @@ def phase_gather(rows=1 << 21, n=32768, batch=4096, width=16, dim_pool=128,
     log("gather", f"gather + masked mean-pool B={batch} w={width} D={d} "
                   f"({valid_np.mean():.0%} valid): {ms:.4f} ms, "
                   f"{gbs:.1f} GB/s (all B*w rows read + pooled rows "
-                  f"written)")
+                  f"written; {versus_loop(ms)})")
 
 
 def phase_four_cards(workdir, batch=4096, steps=3, capacity=1 << 16):
@@ -422,9 +451,9 @@ def phase_four_cards(workdir, batch=4096, steps=3, capacity=1 << 16):
     against the single-device Trainer, then a 4-shard save restored on one
     device and trained one more step."""
     import jax
-    from deeprec_jax.checkpoint import CheckpointManager
-    from deeprec_jax.data.criteo import SyntheticCriteo
-    from deeprec_jax.train import cli
+    from deeprec_tpu.checkpoint import CheckpointManager
+    from deeprec_tpu.data.criteo import SyntheticCriteo
+    from deeprec_tpu.train import cli
 
     if len(jax.devices()) < 4:
         raise RuntimeError(f"--four-cards needs 4 devices, found "

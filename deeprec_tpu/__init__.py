@@ -1,4 +1,4 @@
-"""deeprec_jax — a JAX framework for large-scale sparse
+"""deeprec_tpu — a JAX framework for large-scale sparse
 recommendation models, built from scratch in JAX/XLA/Pallas with the
 capabilities of DeepRec (dynamic hash-keyed embedding tables, feature
 admission/eviction, sparse optimizers, incremental checkpointing, sharded

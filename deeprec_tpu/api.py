@@ -40,7 +40,7 @@ def get_embedding_variable(
 
     Filters/eviction/storage come in as config kwargs (counter_filter=,
     cbf_filter=, evict=, storage=) instead of the EmbeddingVariableOption
-    bundle; :class:`deeprec_jax.config` holds the option classes.
+    bundle; :class:`deeprec_tpu.config` holds the option classes.
     """
     cfg = EmbeddingVariableConfig(
         name=name, embedding_dim=embedding_dim, capacity=capacity,

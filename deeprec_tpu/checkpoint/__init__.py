@@ -1,7 +1,7 @@
 """Checkpointing: full + incremental saves, reshard-safe restore.
 
-See :mod:`deeprec_jax.checkpoint.saver` for the manager and
-:mod:`deeprec_jax.checkpoint.format` for the on-disk layout.
+See :mod:`deeprec_tpu.checkpoint.saver` for the manager and
+:mod:`deeprec_tpu.checkpoint.format` for the on-disk layout.
 """
 from .format import list_saves, restore_plan
 from .saver import CheckpointManager, table_snapshot_host

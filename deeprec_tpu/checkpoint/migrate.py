@@ -18,10 +18,10 @@ the clean-room :mod:`.bundle_reader` and loads it into live trainer state:
 * :func:`import_tables` — insert the rows into a ``Trainer`` /
   ``ShardedTrainer`` state (grows capacity as needed, routes rows to mesh
   shards by our key hash — shard-count independent, like everything else
-  in :mod:`deeprec_jax.checkpoint`).
+  in :mod:`deeprec_tpu.checkpoint`).
 * :func:`import_dense` — name-mapped dense weight transfer into a params
   pytree.
-* CLI ``python -m deeprec_jax.checkpoint.migrate`` — offline conversion of
+* CLI ``python -m deeprec_tpu.checkpoint.migrate`` — offline conversion of
   a bundle to our npz table schema plus a JSON report.
 
 Semantics notes (documented divergences):
@@ -406,7 +406,7 @@ def _main(argv: Optional[List[str]] = None) -> int:
 
     ap = argparse.ArgumentParser(
         description="Convert a DeepRec TensorBundle checkpoint into "
-        "deeprec_jax npz table files + a migration report.")
+        "deeprec_tpu npz table files + a migration report.")
     ap.add_argument("--prefix", required=True,
                     help="bundle prefix (path without .index)")
     ap.add_argument("--out", required=True, help="output directory")

@@ -179,7 +179,7 @@ def input_producer(queue: WorkQueue, reader, *reader_args, **reader_kwargs):
     reference python/ops/work_queue.py).
 
     ``reader(item, *args, **kwargs)`` must return a batch iterator (e.g.
-    :func:`deeprec_jax.data.criteo.read_criteo`).
+    :func:`deeprec_tpu.data.criteo.read_criteo`).
     """
     for item in queue:
         yield from reader(item, *reader_args, **reader_kwargs)

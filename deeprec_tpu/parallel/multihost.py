@@ -7,7 +7,7 @@ the named axis spanning every host's devices).
 
 Usage on every host of the job:
 
-    from deeprec_jax.parallel import multihost
+    from deeprec_tpu.parallel import multihost
     multihost.initialize()                      # once, before jax use
     mesh = make_mesh()                          # all global devices
     tr = ShardedTrainer(..., mesh=mesh)

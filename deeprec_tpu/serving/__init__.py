@@ -8,7 +8,7 @@ from .predictor import Predictor, ShardedPredictor, TieredPredictor
 
 
 def make_server(predictor, host="127.0.0.1", port=8500, refresh_secs=0.0):
-    """HTTP front end over a predictor — see :mod:`deeprec_jax.serving.server`
+    """HTTP front end over a predictor — see :mod:`deeprec_tpu.serving.server`
     (lazy import: the predictors stay importable without the server)."""
     from .server import make_server as _mk
     return _mk(predictor, host=host, port=port, refresh_secs=refresh_secs)

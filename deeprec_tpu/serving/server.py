@@ -33,7 +33,7 @@ rows. Off by default — lone-request latency pays up to M extra ms.
 
 Run a modelzoo model directly:
 
-  python -m deeprec_jax.serving.server --model DLRM --ckpt_dir /ckpts \
+  python -m deeprec_tpu.serving.server --model DLRM --ckpt_dir /ckpts \
       --port 8500 --refresh_secs 30 [--mesh 4 | --device_row_budget 1000000] \
       -- --emb_dim 16 --capacity 1048576   # model-spec flags after --
 """

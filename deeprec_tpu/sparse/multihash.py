@@ -12,7 +12,7 @@ O(Q + R) with Q·R ≥ vocab.
 Design: the sub-tables are plain dense ``[size_i, dim_i]``
 arrays (static shapes — ideal for XLA gathers), the lookup is pure and
 differentiable, and sparse training uses the same
-:mod:`deeprec_jax.optim.sparse` updaters over per-table deduplicated
+:mod:`deeprec_tpu.optim.sparse` updaters over per-table deduplicated
 indices. No hash-table state is needed at all — this variant trades the
 dynamic keyspace for a fixed compositional one.
 """

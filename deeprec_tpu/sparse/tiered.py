@@ -4,7 +4,7 @@ Rebuild of DeepRec's multi-tier EmbeddingVariable storage
 (reference: embedding/config.proto StorageType{DRAM,PMEM,SSD}, the
 DRAM/PMEM ValuePtr tiers behind EmbeddingVar, and modelzoo/features/pmem).
 The hot tier is the device HBM row store of :mod:`embedding_var`;
-the cold tier is a native host-DRAM KV (:class:`deeprec_jax.utils.native.
+the cold tier is a native host-DRAM KV (:class:`deeprec_tpu.utils.native.
 HostKV`, C++ sharded open-addressing arena).
 
 Protocol (host-in-the-loop, mirroring the reference's CPU-side tier):

@@ -133,7 +133,7 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
 
 
 def ev_kwargs(args) -> dict:
-    import deeprec_jax as dr
+    import deeprec_tpu as dr
     kw = {}
     if args.ev_filter_freq:
         kw["counter_filter"] = dr.CounterFilter(args.ev_filter_freq)

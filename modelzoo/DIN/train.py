@@ -11,9 +11,9 @@ import sys
 sys.path.insert(0, os.path.abspath(
     os.path.join(os.path.dirname(__file__), "..", "..")))
 
-from deeprec_jax import Initializer, feature_column as fc
-from deeprec_jax.models import sequence
-from deeprec_jax.train import cli
+from deeprec_tpu import Initializer, feature_column as fc
+from deeprec_tpu.models import sequence
+from deeprec_tpu.train import cli
 
 MAX_LEN = 32
 

@@ -11,11 +11,11 @@ import sys
 sys.path.insert(0, os.path.abspath(
     os.path.join(os.path.dirname(__file__), "..", "..")))
 
-from deeprec_jax import Initializer, feature_column as fc
-from deeprec_jax.data.criteo import CAT_NAMES, DENSE_NAMES
-from deeprec_jax.models import ctr
-from deeprec_jax.optim import sparse as sopt
-from deeprec_jax.train import cli
+from deeprec_tpu import Initializer, feature_column as fc
+from deeprec_tpu.data.criteo import CAT_NAMES, DENSE_NAMES
+from deeprec_tpu.models import ctr
+from deeprec_tpu.optim import sparse as sopt
+from deeprec_tpu.train import cli
 
 
 def build(args) -> cli.ModelSpec:

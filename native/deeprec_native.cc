@@ -1,4 +1,4 @@
-// deeprec_jax native host runtime: sharded host KV row store + batched
+// deeprec_tpu native host runtime: sharded host KV row store + batched
 // Criteo parser.
 //
 // Counterparts of the reference's host-side C++ (built from
@@ -980,7 +980,7 @@ int64_t hidx_resolve(HostIndexResolver* r, const int64_t* keys, int64_t n,
 }
 
 // Resolve directly into the single H2D "wire" byte buffer the jitted step
-// decodes (deeprec_jax/host_index.py ResolvedWire). Layout (little-endian,
+// decodes (deeprec_tpu/host_index.py ResolvedWire). Layout (little-endian,
 // U = u_out, n = batch width):
 //   [slots|created<<30 : i32 U][key hi : i32 U][key lo : i32 U]
 //   [counts : i32 U, only if with_counts]

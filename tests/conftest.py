@@ -21,7 +21,7 @@ import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 import jax  # noqa: E402
 
-from deeprec_jax.utils import compile_cache  # noqa: E402
+from deeprec_tpu.utils import compile_cache  # noqa: E402
 
 # Persistent compile cache: the suite is dominated by XLA CPU compiles of the
 # probing/scatter loops; cache them across runs.

@@ -12,14 +12,14 @@ CATS = ["C1", "C2"]
 def make_common(tiered=False, host_index=False):
     import optax
 
-    import deeprec_jax as dr
-    from deeprec_jax import feature_column as fc
-    from deeprec_jax.models import ctr
-    from deeprec_jax.optim import sparse as sopt
+    import deeprec_tpu as dr
+    from deeprec_tpu import feature_column as fc
+    from deeprec_tpu.models import ctr
+    from deeprec_tpu.optim import sparse as sopt
 
     ev_kw = {}
     if tiered:
-        from deeprec_jax.config import StorageOption, StorageType
+        from deeprec_tpu.config import StorageOption, StorageType
         # CBF admission included so multi-part checkpoints carry per-shard
         # sketch blocks (admission behavior must survive restore at any
         # process count)
@@ -31,7 +31,7 @@ def make_common(tiered=False, host_index=False):
     if host_index:
         # the host-resolved engine: per-process resolvers own the local
         # shards; cross-process id buckets ride the host exchange
-        from deeprec_jax.parallel.host_sharded import HostShardedCollection
+        from deeprec_tpu.parallel.host_sharded import HostShardedCollection
         coll = HostShardedCollection(
             cols, name="emb", capacity=256, max_unique=64,
             initializer=dr.Initializer("normal", scale=0.1), **ev_kw)

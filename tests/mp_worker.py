@@ -34,24 +34,24 @@ def main():
     os.environ["PROCESS_ID"] = str(pid)
 
     import jax
-    from deeprec_jax.utils import compile_cache
+    from deeprec_tpu.utils import compile_cache
     compile_cache.enable()
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.3)
 
-    from deeprec_jax.parallel import multihost
+    from deeprec_tpu.parallel import multihost
     multihost.initialize()  # env-var driven (the TF_CONFIG analog)
     assert jax.process_count() == nproc
 
     import numpy as np
     import optax
 
-    from deeprec_jax.checkpoint import CheckpointManager
-    from deeprec_jax.parallel.trainer import ShardedTrainer, make_mesh
-    from deeprec_jax.train import metrics as M
+    from deeprec_tpu.checkpoint import CheckpointManager
+    from deeprec_tpu.parallel.trainer import ShardedTrainer, make_mesh
+    from deeprec_tpu.train import metrics as M
     from mp_model import GLOBAL_BATCH, STEPS, global_batch, make_common
 
     if tiered:
-        from deeprec_jax.parallel.tiered import TieredShardedTrainer as TC
+        from deeprec_tpu.parallel.tiered import TieredShardedTrainer as TC
     else:
         TC = ShardedTrainer
     tr = TC(mesh=make_mesh(), **make_common(tiered=tiered,

@@ -4,12 +4,12 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-import deeprec_jax as dr
-from deeprec_jax.config import CBFFilter
-from deeprec_jax.models.structured import dot_head, structured_forward
-from deeprec_jax.optim import sparse as sopt
-from deeprec_jax.sparse import hash_table_api as hta
-from deeprec_jax.sparse import keys as K
+import deeprec_tpu as dr
+from deeprec_tpu.config import CBFFilter
+from deeprec_tpu.models.structured import dot_head, structured_forward
+from deeprec_tpu.optim import sparse as sopt
+from deeprec_tpu.sparse import hash_table_api as hta
+from deeprec_tpu.sparse import keys as K
 
 
 def ids_of(*vals):

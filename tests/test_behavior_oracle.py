@@ -6,7 +6,7 @@ table can state what fraction of the achievable lift DIN/DIEN capture.
 """
 import numpy as np
 
-from deeprec_jax.data.behavior import SyntheticBehavior, _rank_auc, oracle_auc
+from deeprec_tpu.data.behavior import SyntheticBehavior, _rank_auc, oracle_auc
 
 
 def test_rank_auc_exact():

@@ -11,14 +11,14 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-import deeprec_jax as dr
-from deeprec_jax import feature_column as fc
-from deeprec_jax.checkpoint import CheckpointManager
-from deeprec_jax.data.criteo import CAT_NAMES, DENSE_NAMES, SyntheticCriteo
-from deeprec_jax.models import ctr
-from deeprec_jax.optim import sparse as sopt
-from deeprec_jax.train import metrics as M
-from deeprec_jax.train.trainer import Trainer
+import deeprec_tpu as dr
+from deeprec_tpu import feature_column as fc
+from deeprec_tpu.checkpoint import CheckpointManager
+from deeprec_tpu.data.criteo import CAT_NAMES, DENSE_NAMES, SyntheticCriteo
+from deeprec_tpu.models import ctr
+from deeprec_tpu.optim import sparse as sopt
+from deeprec_tpu.train import metrics as M
+from deeprec_tpu.train.trainer import Trainer
 
 N_CAT, N_DENSE = 4, 3
 
@@ -80,7 +80,7 @@ def test_bf16_checkpoint_roundtrip_exact_bits(tmp_path):
     assert ok
     assert st2.tables["emb"].ev.values.dtype == jnp.bfloat16
 
-    from deeprec_jax.checkpoint.saver import table_snapshot_host
+    from deeprec_tpu.checkpoint.saver import table_snapshot_host
 
     def bits_by_key(trx, stx):
         snap = table_snapshot_host(trx.collections["emb"].config,
@@ -99,8 +99,8 @@ def test_bf16_checkpoint_roundtrip_exact_bits(tmp_path):
 def test_bf16_tier_demote_promote_roundtrip():
     """bf16 rows survive host-tier demotion and promotion exactly: the
     tier payload is f32, and bf16 -> f32 -> bf16 is lossless."""
-    from deeprec_jax.config import StorageOption, StorageType
-    from deeprec_jax.train.tiered_trainer import TieredTrainer
+    from deeprec_tpu.config import StorageOption, StorageType
+    from deeprec_tpu.train.tiered_trainer import TieredTrainer
 
     numeric = [fc.NumericColumn(n, log_normalize=True)
                for n in DENSE_NAMES[:N_DENSE]]
@@ -118,7 +118,7 @@ def test_bf16_tier_demote_promote_roundtrip():
     bs = batches(6, bs=64)
     st = tr.init(jax.random.key(0), bs[0])
     st = tr.train_step(st, bs[0])
-    from deeprec_jax.checkpoint.saver import table_snapshot_host
+    from deeprec_tpu.checkpoint.saver import table_snapshot_host
     snap0 = table_snapshot_host(coll.config, st.tables["emb"].ev,
                                 st.tables["emb"].slot, evict=False)
     bits0 = {k: np.asarray(snap0["values"]).view(np.uint16)[i].tobytes()

@@ -9,14 +9,14 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-import deeprec_jax as dr
-from deeprec_jax import feature_column as fc
-from deeprec_jax.checkpoint import CheckpointManager
-from deeprec_jax.data.criteo import SyntheticCriteo, CAT_NAMES, DENSE_NAMES
-from deeprec_jax.models import ctr
-from deeprec_jax.optim import sparse as sopt
-from deeprec_jax.train.trainer import Trainer
-from deeprec_jax.parallel.trainer import ShardedTrainer, make_mesh
+import deeprec_tpu as dr
+from deeprec_tpu import feature_column as fc
+from deeprec_tpu.checkpoint import CheckpointManager
+from deeprec_tpu.data.criteo import SyntheticCriteo, CAT_NAMES, DENSE_NAMES
+from deeprec_tpu.models import ctr
+from deeprec_tpu.optim import sparse as sopt
+from deeprec_tpu.train.trainer import Trainer
+from deeprec_tpu.parallel.trainer import ShardedTrainer, make_mesh
 
 
 N_CAT = 4
@@ -52,7 +52,7 @@ def batches(n, bs=64, seed=0):
 
 
 def snapshot_dict(trainer, state, name="emb"):
-    from deeprec_jax.checkpoint.saver import table_snapshot_host
+    from deeprec_tpu.checkpoint.saver import table_snapshot_host
     S = getattr(trainer, "S", 1)
     coll = trainer.collections[name]
     t = state.tables[name]
@@ -136,8 +136,8 @@ def test_incremental_is_delta(tmp_path):
     mgr.save(tr, state)
     state = tr.train_step(state, bs[2])
     mgr.save_incremental(tr, state)
-    from deeprec_jax.checkpoint import list_saves
-    from deeprec_jax.checkpoint.format import read_table
+    from deeprec_tpu.checkpoint import list_saves
+    from deeprec_tpu.checkpoint.format import read_table
     saves = list_saves(str(tmp_path))
     incr = [m for m in saves if m["kind"] == "incr"][0]
     full = [m for m in saves if m["kind"] == "full"][0]
@@ -195,8 +195,8 @@ def test_evict_at_save(tmp_path):
         state = tr.train_step(state, b)
     mgr = CheckpointManager(str(tmp_path))
     mgr.save(tr, state, evict=True)
-    from deeprec_jax.checkpoint.format import read_table
-    from deeprec_jax.checkpoint import list_saves
+    from deeprec_tpu.checkpoint.format import read_table
+    from deeprec_tpu.checkpoint import list_saves
     full = list_saves(str(tmp_path))[-1]
     t = read_table(full["path"], "emb")
     # every saved row was touched within steps_to_live of the save step

@@ -32,8 +32,8 @@ def test_parity_phase():
 
 
 def test_gather_phase():
-    chip_smoke.phase_gather(rows=1 << 10, n=256, batch=32, width=4,
-                            dim_pool=16, iters=3)
+    chip_smoke.phase_gather(rows=1 << 10, n=256, n_big=1024, batch=32,
+                            width=4, dim_pool=16, iters=3)
 
 
 def test_four_cards_phase(tmp_path):

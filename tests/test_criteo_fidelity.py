@@ -9,9 +9,9 @@ import pytest
 
 import jax
 
-from deeprec_jax.data.criteo import (CAT_NAMES, DENSE_NAMES, _hash_token,
+from deeprec_tpu.data.criteo import (CAT_NAMES, DENSE_NAMES, _hash_token,
                                      read_criteo, read_criteo_native)
-from deeprec_jax.utils.native import criteo_parse_chunk, get_lib
+from deeprec_tpu.utils.native import criteo_parse_chunk, get_lib
 
 
 def _random_line(rng, edge: str = "") -> str:
@@ -101,12 +101,12 @@ def test_training_from_criteo_file_lifts_auc(tmp_path):
     Trainer -> AUC lift (file-driven training, not the synthetic path)."""
     import optax
 
-    import deeprec_jax as dr
-    from deeprec_jax import feature_column as fc
-    from deeprec_jax.models import ctr
-    from deeprec_jax.optim import sparse as sopt
-    from deeprec_jax.train import metrics as M
-    from deeprec_jax.train.trainer import Trainer
+    import deeprec_tpu as dr
+    from deeprec_tpu import feature_column as fc
+    from deeprec_tpu.models import ctr
+    from deeprec_tpu.optim import sparse as sopt
+    from deeprec_tpu.train import metrics as M
+    from deeprec_tpu.train.trainer import Trainer
 
     p = tmp_path / "train.tsv"
     rng = np.random.default_rng(1)

@@ -9,17 +9,17 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-import deeprec_jax as dr
-from deeprec_jax import feature_column as fc
-from deeprec_jax.config import CBFFilter
-from deeprec_jax.feature_column_variants import HashTableCollection
-from deeprec_jax.models import ctr
-from deeprec_jax.optim import sparse as sopt
-from deeprec_jax.parallel.hash_table import DistributedHashTable
-from deeprec_jax.parallel.trainer import make_mesh
-from deeprec_jax.sparse import keys as K
-from deeprec_jax.train import metrics as M
-from deeprec_jax.train.trainer import Trainer
+import deeprec_tpu as dr
+from deeprec_tpu import feature_column as fc
+from deeprec_tpu.config import CBFFilter
+from deeprec_tpu.feature_column_variants import HashTableCollection
+from deeprec_tpu.models import ctr
+from deeprec_tpu.optim import sparse as sopt
+from deeprec_tpu.parallel.hash_table import DistributedHashTable
+from deeprec_tpu.parallel.trainer import make_mesh
+from deeprec_tpu.sparse import keys as K
+from deeprec_tpu.train import metrics as M
+from deeprec_tpu.train.trainer import Trainer
 
 
 def _keys_batch(ids, S=4, n=16):
@@ -47,7 +47,7 @@ class TestDistributedHashTable:
         for k, i in zip(arrf, ids1):
             assert m.setdefault(k, i) == i
         # id -> shard is the owner hash (global id = local*S + shard)
-        from deeprec_jax.parallel.sharded import OWNER_SEED
+        from deeprec_tpu.parallel.sharded import OWNER_SEED
         own = K.hash32_np(arrf, seed=OWNER_SEED) % np.uint32(4)
         np.testing.assert_array_equal(ids1 % 4, own.astype(ids1.dtype))
         # ids are dense per shard: shard s's local ids are 0..count-1
@@ -230,10 +230,10 @@ class TestHashTableColumn:
         live = ~((keys_hi == -1) & (keys_lo == -1))
         k64 = ((keys_hi[live].astype(np.int64) << 32)
                | keys_lo[live].astype(np.uint32).astype(np.int64))
-        from deeprec_jax.sparse import hash_table_api as hta
+        from deeprec_tpu.sparse import hash_table_api as hta
         ids_after = np.asarray(hta.lookup(g.alloc, K.from_numpy(k64)))
         old_ids = []
-        from deeprec_jax.sparse import hashtable as ht_mod
+        from deeprec_tpu.sparse import hashtable as ht_mod
         slots, found = ht_mod.lookup(b.ev.alloc.index, K.from_numpy(k64), 32)
         old_ids = ids_before[np.asarray(slots)]
         np.testing.assert_array_equal(ids_after, old_ids)
@@ -249,7 +249,7 @@ def test_hashtable_collection_checkpoint_roundtrip(tmp_path):
     per-shard internals, re-allocated at restore like the reference's
     HashTableDirectRestoreOp re-insertion, ops/hash_ops.cc:353-391): every
     key's row and allocator size survive; dense ids may renumber."""
-    from deeprec_jax.checkpoint import CheckpointManager
+    from deeprec_tpu.checkpoint import CheckpointManager
 
     def make():
         cols = [fc.EmbeddingColumn(fc.CategoricalColumn("C1"), 8)]
@@ -279,7 +279,7 @@ def test_hashtable_collection_checkpoint_roundtrip(tmp_path):
     assert ok
 
     def rows_by_key(trx, stx):
-        from deeprec_jax.sparse import hash_table_api as hta
+        from deeprec_tpu.sparse import hash_table_api as hta
         ev_st = stx.tables["emb"].ev
         hi = np.asarray(ev_st.alloc.index.key_hi)
         lo = np.asarray(ev_st.alloc.index.key_lo)
@@ -308,7 +308,7 @@ class TestReinsertCompaction:
     ids densely (ops/hash_ops.cc:353-391)."""
 
     def test_ids_compact_and_next_id_fresh(self):
-        from deeprec_jax.sparse import hash_table_api as hta
+        from deeprec_tpu.sparse import hash_table_api as hta
 
         cap = 64
         st = hta.create(cap)

@@ -6,10 +6,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import deeprec_jax as dr
-from deeprec_jax.sparse import embedding_var as ev
-from deeprec_jax.sparse import keys as K
-from deeprec_jax.optim import sparse as sopt
+import deeprec_tpu as dr
+from deeprec_tpu.sparse import embedding_var as ev
+from deeprec_tpu.sparse import keys as K
+from deeprec_tpu.optim import sparse as sopt
 
 
 def _cfg(**kw):
@@ -160,7 +160,7 @@ class TestEviction:
         st2, perm = ev.shrink(st, cfg, 12)
         # versions: 1->0 (evict: 12-0>=10), 2->8 keep, 3->8 keep
         assert int(st2.index.size.sum()) == 2
-        from deeprec_jax.sparse import hashtable as ht
+        from deeprec_tpu.sparse import hashtable as ht
         _, found = ht.lookup(st2.index, _ids([2, 3]))
         assert np.asarray(found).all()
         _, found1 = ht.lookup(st2.index, _ids([1]))

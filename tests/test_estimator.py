@@ -3,12 +3,12 @@ evaluate/predict -> serving handoff."""
 import numpy as np
 import optax
 
-import deeprec_jax as dr
-from deeprec_jax import feature_column as fc
-from deeprec_jax.data.criteo import CAT_NAMES, DENSE_NAMES, SyntheticCriteo
-from deeprec_jax.models import ctr
-from deeprec_jax.optim import sparse as sopt
-from deeprec_jax.train.estimator import Estimator
+import deeprec_tpu as dr
+from deeprec_tpu import feature_column as fc
+from deeprec_tpu.data.criteo import CAT_NAMES, DENSE_NAMES, SyntheticCriteo
+from deeprec_tpu.models import ctr
+from deeprec_tpu.optim import sparse as sopt
+from deeprec_tpu.train.estimator import Estimator
 
 
 def make_est(model_dir):
@@ -52,7 +52,7 @@ def test_estimator_train_eval_predict_restore(tmp_path):
 
     # serving handoff
     d = est2.export_saved_model()
-    from deeprec_jax.serving import Predictor
+    from deeprec_tpu.serving import Predictor
     numeric = [fc.NumericColumn(n, log_normalize=True)
                for n in DENSE_NAMES[:3]]
     cols = [fc.EmbeddingColumn(fc.CategoricalColumn(n), 8)

@@ -8,12 +8,12 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-import deeprec_jax as dr
-from deeprec_jax.config import CounterFilter, EmbeddingVariableConfig
-from deeprec_jax.optim import sparse as sopt
-from deeprec_jax.sparse import adaptive, dynamicdim, embedding_var as ev
-from deeprec_jax.sparse import keys as K
-from deeprec_jax.sparse import multihash as mh
+import deeprec_tpu as dr
+from deeprec_tpu.config import CounterFilter, EmbeddingVariableConfig
+from deeprec_tpu.optim import sparse as sopt
+from deeprec_tpu.sparse import adaptive, dynamicdim, embedding_var as ev
+from deeprec_tpu.sparse import keys as K
+from deeprec_tpu.sparse import multihash as mh
 
 
 def ids_of(*vals):

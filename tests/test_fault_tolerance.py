@@ -23,11 +23,11 @@ import jax
 jax.config.update("jax_platforms", "cpu")
 
 sys.path.insert(0, {repo!r})
-from deeprec_jax.data.criteo import CAT_NAMES
+from deeprec_tpu.data.criteo import CAT_NAMES
 
 # Criteo-format training files (written once by the test)
 from modelzoo.DCN.train import build
-from deeprec_jax.train import cli
+from deeprec_tpu.train import cli
 
 args = cli.base_parser("t").parse_args([
     "--steps", "100000",  # run "forever": the queue draining ends the run

@@ -6,12 +6,12 @@ import optax
 import jax
 import jax.numpy as jnp
 
-import deeprec_jax as dr
-from deeprec_jax import feature_column as fc
-from deeprec_jax.data.criteo import CAT_NAMES, DENSE_NAMES, SyntheticCriteo
-from deeprec_jax.models import ctr
-from deeprec_jax.optim import sparse as sopt
-from deeprec_jax.train.trainer import Trainer
+import deeprec_tpu as dr
+from deeprec_tpu import feature_column as fc
+from deeprec_tpu.data.criteo import CAT_NAMES, DENSE_NAMES, SyntheticCriteo
+from deeprec_tpu.models import ctr
+from deeprec_tpu.optim import sparse as sopt
+from deeprec_tpu.train.trainer import Trainer
 
 N_CAT, DIM = 4, 8
 
@@ -35,7 +35,7 @@ def make(fused: bool):
 
 
 def rows_by_key(tr, state):
-    from deeprec_jax.checkpoint.saver import table_snapshot_host
+    from deeprec_tpu.checkpoint.saver import table_snapshot_host
     snap = table_snapshot_host(tr.collections["emb"].config,
                                state.tables["emb"].ev,
                                state.tables["emb"].slot, evict=False)

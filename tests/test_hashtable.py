@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from deeprec_jax.sparse import hashtable as ht
-from deeprec_jax.sparse import keys as K
-from deeprec_jax.ops.unique import unique
+from deeprec_tpu.sparse import hashtable as ht
+from deeprec_tpu.sparse import keys as K
+from deeprec_tpu.ops.unique import unique
 
 
 def _keys(arr):

@@ -5,8 +5,8 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from deeprec_jax.sparse import hashtable as ht
-from deeprec_jax.sparse import keys as K
+from deeprec_tpu.sparse import hashtable as ht
+from deeprec_tpu.sparse import keys as K
 
 
 def keys64(arr):

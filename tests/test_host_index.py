@@ -1,7 +1,7 @@
 """Host-index fast path: semantics must be IDENTICAL to the device-index
 engine (reference parity: the CPU-hash-map index of
 tensorflow/core/framework/embedding/dense_hash_map.h, rebuilt as a
-pipelined C++ resolver — see deeprec_jax/host_index.py).
+pipelined C++ resolver — see deeprec_tpu/host_index.py).
 """
 import numpy as np
 import pytest
@@ -10,15 +10,15 @@ import jax
 import jax.numpy as jnp
 import optax
 
-import deeprec_jax as dr
-from deeprec_jax import feature_column as fc
-from deeprec_jax.data.criteo import CAT_NAMES, DENSE_NAMES, SyntheticCriteo
-from deeprec_jax.host_index import HostEVState, HostIndexEmbeddingCollection
-from deeprec_jax.models import ctr
-from deeprec_jax.optim import sparse as sopt
-from deeprec_jax.train import metrics as metrics_lib
-from deeprec_jax.train.trainer import Trainer
-from deeprec_jax.utils.native import HostIndexResolver, get_lib
+import deeprec_tpu as dr
+from deeprec_tpu import feature_column as fc
+from deeprec_tpu.data.criteo import CAT_NAMES, DENSE_NAMES, SyntheticCriteo
+from deeprec_tpu.host_index import HostEVState, HostIndexEmbeddingCollection
+from deeprec_tpu.models import ctr
+from deeprec_tpu.optim import sparse as sopt
+from deeprec_tpu.train import metrics as metrics_lib
+from deeprec_tpu.train.trainer import Trainer
+from deeprec_tpu.utils.native import HostIndexResolver, get_lib
 
 NATIVE = get_lib() is not None
 
@@ -148,7 +148,7 @@ def _table_dict(coll, bundle, host, step):
     if host:
         a = coll.ckpt_arrays(bundle, 1, None, False, step)
     else:
-        from deeprec_jax.checkpoint.saver import table_snapshot_host
+        from deeprec_tpu.checkpoint.saver import table_snapshot_host
         a = table_snapshot_host(coll.config, bundle.ev, bundle.slot)
     return (dict(zip(a["keys"].tolist(), np.asarray(a["values"]))),
             dict(zip(a["keys"].tolist(), a["freqs"].tolist())),
@@ -247,7 +247,7 @@ def test_host_checkpoint_roundtrip_and_cross_path(tmp_path):
     """Full+incremental save from the HOST trainer restores into BOTH a
     host trainer and a DEVICE trainer (and vice versa) — the 4-array
     checkpoint format is one interchange."""
-    from deeprec_jax.checkpoint.saver import CheckpointManager
+    from deeprec_tpu.checkpoint.saver import CheckpointManager
 
     gen = SyntheticCriteo(batch_size=128, seed=21)
     batches = list(gen.take(8))
@@ -322,9 +322,9 @@ def test_serving_from_host_index_checkpoint(tmp_path):
     table on-device); predictions equal the trainer's own eval logits."""
     import functools
 
-    from deeprec_jax.checkpoint.saver import CheckpointManager
-    from deeprec_jax.feature_column import normalize_dense
-    from deeprec_jax.serving.predictor import Predictor
+    from deeprec_tpu.checkpoint.saver import CheckpointManager
+    from deeprec_tpu.feature_column import normalize_dense
+    from deeprec_tpu.serving.predictor import Predictor
 
     gen = SyntheticCriteo(batch_size=128, seed=41)
     batches = list(gen.take(5))
@@ -358,7 +358,7 @@ def test_serving_from_host_index_checkpoint(tmp_path):
 def test_estimator_with_host_index(tmp_path):
     """Estimator train/evaluate/predict over a host-index collection
     (evaluate/predict go through the read-only resolve)."""
-    from deeprec_jax.train.estimator import Estimator
+    from deeprec_tpu.train.estimator import Estimator
 
     tr, coll = _build(True)
     gen = SyntheticCriteo(batch_size=128, seed=51)
@@ -380,8 +380,8 @@ def test_estimator_with_host_index(tmp_path):
 
 def test_host_unsupported_configs_raise():
     cols = [fc.EmbeddingColumn(fc.CategoricalColumn("a"), 4)]
-    from deeprec_jax.config import StorageOption, StorageType
-    import deeprec_jax as dr
+    from deeprec_tpu.config import StorageOption, StorageType
+    import deeprec_tpu as dr
     # tiered storage IS supported (round 5); the one justified rejection
     # is CBF admission on a tiered table (the bloom gate would deny a
     # returning demoted key its slot — see host_index.py __init__)
@@ -404,7 +404,7 @@ def test_host_light_layout_touched_incremental(tmp_path):
     from the resolver's touched-slot recorder (reference recorder-op
     semantics, incr_save_restore_ops.h:329) — not a full-row dump, and
     base+incr restore equals the live table bit-for-bit."""
-    from deeprec_jax.checkpoint.saver import CheckpointManager
+    from deeprec_tpu.checkpoint.saver import CheckpointManager
 
     gen = SyntheticCriteo(batch_size=128, seed=41)
     batches = list(gen.take(8))
@@ -456,7 +456,7 @@ def test_host_cbf_admission_parity(tmp_path):
     identically to the device engine (same hash family, bump order and
     post-bump estimate), and CBF counters checkpoint-interchange across
     engines."""
-    from deeprec_jax.checkpoint.saver import CheckpointManager
+    from deeprec_tpu.checkpoint.saver import CheckpointManager
 
     kw = dict(cbf_filter=dr.CBFFilter(filter_freq=3, max_element_size=2000,
                                       num_hashes=4))

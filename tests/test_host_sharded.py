@@ -8,17 +8,17 @@ import jax
 import jax.numpy as jnp
 import optax
 
-import deeprec_jax as dr
-from deeprec_jax import feature_column as fc
-from deeprec_jax.data.criteo import CAT_NAMES, DENSE_NAMES, SyntheticCriteo
-from deeprec_jax.host_index import HostIndexEmbeddingCollection
-from deeprec_jax.parallel.host_sharded import HostShardedCollection
-from deeprec_jax.parallel.trainer import ShardedTrainer, make_mesh
-from deeprec_jax.models import ctr
-from deeprec_jax.optim import sparse as sopt
-from deeprec_jax.train import metrics as metrics_lib
-from deeprec_jax.train.trainer import Trainer
-from deeprec_jax.utils.native import get_lib
+import deeprec_tpu as dr
+from deeprec_tpu import feature_column as fc
+from deeprec_tpu.data.criteo import CAT_NAMES, DENSE_NAMES, SyntheticCriteo
+from deeprec_tpu.host_index import HostIndexEmbeddingCollection
+from deeprec_tpu.parallel.host_sharded import HostShardedCollection
+from deeprec_tpu.parallel.trainer import ShardedTrainer, make_mesh
+from deeprec_tpu.models import ctr
+from deeprec_tpu.optim import sparse as sopt
+from deeprec_tpu.train import metrics as metrics_lib
+from deeprec_tpu.train.trainer import Trainer
+from deeprec_tpu.utils.native import get_lib
 
 pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 4, reason="needs the 4+ virtual-device CPU mesh")
@@ -74,7 +74,7 @@ def test_host_sharded_matches_single_device_host():
 
     # eval parity on unseen keys
     md, mh = metrics_lib.create(), metrics_lib.create()
-    from deeprec_jax.parallel.multihost import host_to_global
+    from deeprec_tpu.parallel.multihost import host_to_global
     from jax.sharding import PartitionSpec as P
     md = jax.device_put(md)  # sharded eval psums into a replicated mstate
     for b in SyntheticCriteo(batch_size=128, seed=99).take(2):
@@ -101,7 +101,7 @@ def test_host_sharded_matches_device_sharded_metadata():
     assert float(sh.metrics.loss_sum) == pytest.approx(
         float(sd.metrics.loss_sum), rel=1e-5)
     vh, fh = _table_dict(c_h, sh.tables["emb"], 4, int(jnp.max(sh.step)))
-    from deeprec_jax.checkpoint.saver import table_snapshot_host
+    from deeprec_tpu.checkpoint.saver import table_snapshot_host
     a = table_snapshot_host(c_d.config, sd.tables["emb"].ev,
                             sd.tables["emb"].slot, num_shards=4)
     vd = dict(zip(a["keys"].tolist(), np.asarray(a["values"])))
@@ -114,7 +114,7 @@ def test_host_sharded_matches_device_sharded_metadata():
 
 def test_host_sharded_reshard_checkpoint(tmp_path):
     """Save on 4 shards, restore on 2 — and into the device engine."""
-    from deeprec_jax.checkpoint.saver import CheckpointManager
+    from deeprec_tpu.checkpoint.saver import CheckpointManager
     kw = dict(evict=dr.GlobalStepEvict(steps_to_live=1 << 30))
     gen = SyntheticCriteo(batch_size=128, seed=23)
     batches = list(gen.take(6))
@@ -143,7 +143,7 @@ def test_host_sharded_reshard_checkpoint(tmp_path):
     sd = trd.init(jax.random.key(2), batches[0])
     sd, ok = CheckpointManager(str(tmp_path)).restore(trd, sd)
     assert ok
-    from deeprec_jax.checkpoint.saver import table_snapshot_host
+    from deeprec_tpu.checkpoint.saver import table_snapshot_host
     a = table_snapshot_host(cd.config, sd.tables["emb"].ev,
                             sd.tables["emb"].slot, num_shards=2)
     vd = dict(zip(a["keys"].tolist(), np.asarray(a["values"])))

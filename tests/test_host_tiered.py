@@ -19,16 +19,16 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-import deeprec_jax as dr
-from deeprec_jax.config import StorageOption, StorageType
-from deeprec_jax import feature_column as fc
-from deeprec_jax.host_index import HostIndexEmbeddingCollection
-from deeprec_jax.models import ctr
-from deeprec_jax.optim import sparse as sopt
-from deeprec_jax.train.tiered_trainer import TieredTrainer
-from deeprec_jax.train.trainer import Trainer
-from deeprec_jax.data.criteo import SyntheticCriteo
-from deeprec_jax.utils.native import get_lib
+import deeprec_tpu as dr
+from deeprec_tpu.config import StorageOption, StorageType
+from deeprec_tpu import feature_column as fc
+from deeprec_tpu.host_index import HostIndexEmbeddingCollection
+from deeprec_tpu.models import ctr
+from deeprec_tpu.optim import sparse as sopt
+from deeprec_tpu.train.tiered_trainer import TieredTrainer
+from deeprec_tpu.train.trainer import Trainer
+from deeprec_tpu.data.criteo import SyntheticCriteo
+from deeprec_tpu.utils.native import get_lib
 
 pytestmark = pytest.mark.skipif(get_lib() is None,
                                 reason="native toolchain unavailable")
@@ -119,7 +119,7 @@ def host_key_map(tr, state):
 
 def device_key_map(tr, state):
     """Same map from the device-engine TieredTrainer (HBM + its tier)."""
-    from deeprec_jax.sparse import keys as K
+    from deeprec_tpu.sparse import keys as K
     coll = tr.collections["emb"]
     st = state.tables["emb"].ev
     hi = np.asarray(st.index.key_hi)
@@ -231,7 +231,7 @@ def test_engine_equality_with_device_tiered():
     eb = batches[0]
     sh = th.train_step(sh, eb)
     sd = td.train_step(sd, eb)
-    from deeprec_jax.train import metrics as M
+    from deeprec_tpu.train import metrics as M
     mh = th.eval_step(sh, M.create(), eb)
     md = td.eval_step(sd, M.create(), eb)
     np.testing.assert_allclose(float(mh.loss_sum), float(md.loss_sum),
@@ -269,7 +269,7 @@ def test_tier_checkpoint_roundtrip(tmp_path):
     """Full + incremental saves span the tier (__tier__ tables via the
     saver's export_tiers/import_tier hooks); restore rebuilds resolver,
     device rows AND the tier; the restored trainer equals the live one."""
-    from deeprec_jax.checkpoint.saver import CheckpointManager
+    from deeprec_tpu.checkpoint.saver import CheckpointManager
     tr = make_host(steps_to_live=3)
     b0 = batch_with([1, 2, 3, 4])
     state = tr.init(jax.random.key(0), b0)

@@ -7,9 +7,9 @@ import time
 
 import numpy as np
 
-from deeprec_jax.data.criteo import SyntheticCriteo, read_criteo
-from deeprec_jax.data.prefetch import Prefetcher, staged
-from deeprec_jax.data.work_queue import WorkQueue, input_producer
+from deeprec_tpu.data.criteo import SyntheticCriteo, read_criteo
+from deeprec_tpu.data.prefetch import Prefetcher, staged
+from deeprec_tpu.data.work_queue import WorkQueue, input_producer
 
 
 def test_prefetch_order_and_content():

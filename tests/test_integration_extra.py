@@ -11,7 +11,7 @@ import jax
 sys.path.insert(0, os.path.abspath(
     os.path.join(os.path.dirname(__file__), "..")))
 
-from deeprec_jax.train import cli
+from deeprec_tpu.train import cli
 
 
 def write_criteo_file(path, rows=96, seed=0):
@@ -42,7 +42,7 @@ def test_cli_trains_from_files_via_workqueue(tmp_path):
     assert out["steps"] == 4
     # claims recorded; summary written
     assert os.listdir(tmp_path / "wq" / "claims")
-    from deeprec_jax.train.summary import read_events
+    from deeprec_tpu.train.summary import read_events
     ev = read_events(str(tmp_path / "sum"))
     assert ev and ev[-1].get("phase") == "eval"
 
@@ -50,14 +50,14 @@ def test_cli_trains_from_files_via_workqueue(tmp_path):
 def test_sharded_incremental_checkpoint(tmp_path):
     """Incremental save/replay with a 4-device mesh, restored onto 2."""
     import optax
-    import deeprec_jax as dr
-    from deeprec_jax import feature_column as fc
-    from deeprec_jax.checkpoint import CheckpointManager
-    from deeprec_jax.data.criteo import CAT_NAMES, DENSE_NAMES, SyntheticCriteo
-    from deeprec_jax.models import ctr
-    from deeprec_jax.optim import sparse as sopt
-    from deeprec_jax.parallel.trainer import ShardedTrainer, make_mesh
-    from deeprec_jax.checkpoint.saver import table_snapshot_host
+    import deeprec_tpu as dr
+    from deeprec_tpu import feature_column as fc
+    from deeprec_tpu.checkpoint import CheckpointManager
+    from deeprec_tpu.data.criteo import CAT_NAMES, DENSE_NAMES, SyntheticCriteo
+    from deeprec_tpu.models import ctr
+    from deeprec_tpu.optim import sparse as sopt
+    from deeprec_tpu.parallel.trainer import ShardedTrainer, make_mesh
+    from deeprec_tpu.checkpoint.saver import table_snapshot_host
 
     def make(n):
         numeric = [fc.NumericColumn(x, log_normalize=True)

@@ -17,16 +17,16 @@ import pytest
 
 tf = pytest.importorskip("tensorflow")
 
-import deeprec_jax as dr  # noqa: E402
-from deeprec_jax import feature_column as fc  # noqa: E402
-from deeprec_jax.checkpoint.bundle_reader import (  # noqa: E402
+import deeprec_tpu as dr  # noqa: E402
+from deeprec_tpu import feature_column as fc  # noqa: E402
+from deeprec_tpu.checkpoint.bundle_reader import (  # noqa: E402
     BundleReader, masked_crc32c)
-from deeprec_jax.checkpoint import migrate  # noqa: E402
-from deeprec_jax.checkpoint.saver import table_snapshot_host  # noqa: E402
-from deeprec_jax.models import ctr  # noqa: E402
-from deeprec_jax.optim import sparse as sopt  # noqa: E402
-from deeprec_jax.train.trainer import Trainer  # noqa: E402
-from deeprec_jax.parallel.trainer import ShardedTrainer, make_mesh  # noqa: E402
+from deeprec_tpu.checkpoint import migrate  # noqa: E402
+from deeprec_tpu.checkpoint.saver import table_snapshot_host  # noqa: E402
+from deeprec_tpu.models import ctr  # noqa: E402
+from deeprec_tpu.optim import sparse as sopt  # noqa: E402
+from deeprec_tpu.train.trainer import Trainer  # noqa: E402
+from deeprec_tpu.parallel.trainer import ShardedTrainer, make_mesh  # noqa: E402
 
 DIM = 8
 
@@ -124,7 +124,7 @@ def test_bundle_reader_sliced_tensor(tmp_path):
 
 def test_crc32c_reference_vector():
     # RFC 3720 test vector: crc32c of 32 zero bytes = 0x8a9136aa
-    from deeprec_jax.checkpoint.bundle_reader import crc32c
+    from deeprec_tpu.checkpoint.bundle_reader import crc32c
     assert crc32c(b"\x00" * 32) == 0x8A9136AA
     assert masked_crc32c(b"") == ((0x0 >> 15 | 0x0 << 17) + 0xA282EAD8) & 0xFFFFFFFF
 
@@ -224,7 +224,7 @@ def test_import_tables_single_device(deeprec_ckpt):
              "C2": deeprec_ckpt["c2_keys"].copy(),
              "label": np.ones(4, np.float32)}
     state2 = trainer.train_step(state, batch)
-    from deeprec_jax.train import metrics as metrics_lib
+    from deeprec_tpu.train import metrics as metrics_lib
     assert np.isfinite(metrics_lib.summarize(state2.metrics)["loss"])
 
 

@@ -7,9 +7,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-import deeprec_jax as dr
-from deeprec_jax import feature_column as fc
-from deeprec_jax.models.layers import Dice
+import deeprec_tpu as dr
+from deeprec_tpu import feature_column as fc
+from deeprec_tpu.models.layers import Dice
 
 
 def test_dice_eval_uses_running_stats():
@@ -38,15 +38,15 @@ def test_dice_eval_uses_running_stats():
 def test_dice_running_stats_update_through_trainer():
     """The Trainer threads the batch_stats collection: running stats move
     during training and the eval step reads them (no mutation)."""
-    from deeprec_jax.models import ctr
-    from deeprec_jax.optim import sparse as sopt
-    from deeprec_jax.train.trainer import Trainer
+    from deeprec_tpu.models import ctr
+    from deeprec_tpu.optim import sparse as sopt
+    from deeprec_tpu.train.trainer import Trainer
 
     class DiceModel(ctr.DCN):
         pass
 
     # DIN uses Dice; build the real DIN path via the sequence model instead
-    from deeprec_jax.models.sequence import DIN
+    from deeprec_tpu.models.sequence import DIN
 
     cols = [fc.EmbeddingColumn(fc.CategoricalColumn("item"), 8),
             fc.SequenceEmbeddingColumn(
@@ -80,7 +80,7 @@ def test_dice_running_stats_update_through_trainer():
 def test_dien_aux_net_is_shared():
     """One projection scores positive and negative aux pairs (the
     reference's single auxiliary_net, modelzoo/DIEN/script/model.py)."""
-    from deeprec_jax.models.sequence import DIEN
+    from deeprec_tpu.models.sequence import DIEN
 
     model = DIEN(candidate_name="item", seq_name="hist")
     B, L, d = 4, 6, 8
@@ -99,7 +99,7 @@ def test_din_attends_over_item_cate_concat():
     with seq_context_names the history categories must change the logits
     (they were previously mean-pooled context only, and DIEN dropped
     them entirely)."""
-    from deeprec_jax.models.sequence import DIN
+    from deeprec_tpu.models.sequence import DIN
 
     m = DIN(candidate_name="item", seq_name="hist_item",
             candidate_context_names=["cate"],

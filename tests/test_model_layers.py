@@ -18,9 +18,9 @@ import numpy as np
 import optax
 import pytest
 
-from deeprec_jax.models import layers
-from deeprec_jax.train import cli
-from deeprec_jax.train.trainer import Trainer
+from deeprec_tpu.models import layers
+from deeprec_tpu.train import cli
+from deeprec_tpu.train.trainer import Trainer
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 with open(os.path.join(os.path.dirname(__file__),
@@ -175,8 +175,8 @@ def test_apply_mutable_returns_updates_and_leaves_input_untouched():
 def test_package_and_model_inits_do_not_import_flax():
     code = (
         "import sys, jax, jax.numpy as jnp\n"
-        "import deeprec_jax\n"
-        "from deeprec_jax.models import ctr, sequence\n"
+        "import deeprec_tpu\n"
+        "from deeprec_tpu.models import ctr, sequence\n"
         "k = jax.random.key(0)\n"
         "d, e = jnp.ones((2, 3)), {'a': jnp.ones((2, 4)), 'b': jnp.ones((2, 4))}\n"
         "ctr.DLRM(emb_names=['a', 'b'], emb_dim=4).init(k, d, e)\n"

@@ -9,7 +9,7 @@ import pytest
 sys.path.insert(0, os.path.abspath(
     os.path.join(os.path.dirname(__file__), "..")))
 
-from deeprec_jax.train import cli
+from deeprec_tpu.train import cli
 
 MODELS = ["WDL", "DLRM", "DCN", "DeepFM", "DSSM", "DIN", "DIEN"]
 
@@ -116,7 +116,7 @@ def test_tiered_storage_flags():
     through the shared CLI: budget-pressure demotion sweeps move LRU rows
     to the host tier mid-run and the loop keeps training (the reference's
     modelzoo/features/pmem StorageOption workflow)."""
-    from deeprec_jax.utils.native import get_lib
+    from deeprec_tpu.utils.native import get_lib
     if get_lib() is None:
         pytest.skip("native toolchain unavailable")
     mod = importlib.import_module("modelzoo.DLRM.train")
@@ -135,7 +135,7 @@ def test_tiered_storage_flags():
 def test_tiered_storage_flags_on_mesh():
     """Same through TieredShardedTrainer (--mesh): per-shard budget
     demotion + owner-routed promotion under the staged pipeline."""
-    from deeprec_jax.utils.native import get_lib
+    from deeprec_tpu.utils.native import get_lib
     if get_lib() is None:
         pytest.skip("native toolchain unavailable")
     mod = importlib.import_module("modelzoo.DLRM.train")
@@ -156,7 +156,7 @@ def test_ssd_storage_flags(tmp_path):
     """--ev_storage hbm_dram_ssd with a tiny --ev_dram_budget: demoted
     rows overflow host DRAM and spill to the file-backed SSD arena, and
     the loop keeps training."""
-    from deeprec_jax.utils.native import get_lib
+    from deeprec_tpu.utils.native import get_lib
     if get_lib() is None:
         pytest.skip("native toolchain unavailable")
     mod = importlib.import_module("modelzoo.DLRM.train")

@@ -69,8 +69,8 @@ def _spawn_cluster(tmp_path, nproc=2, dev_per=4, tiered=False,
 
 def _baseline():
     """Single-controller 8-device run of the same global stream."""
-    from deeprec_jax.parallel.trainer import ShardedTrainer, make_mesh
-    from deeprec_jax.train import metrics as M
+    from deeprec_tpu.parallel.trainer import ShardedTrainer, make_mesh
+    from deeprec_tpu.train import metrics as M
 
     tr = ShardedTrainer(mesh=make_mesh(8), **make_common())
     state = tr.init(jax.random.key(0), global_batch(0))
@@ -80,7 +80,7 @@ def _baseline():
 
 
 def _snap(tr, state):
-    from deeprec_jax.checkpoint.saver import table_snapshot_host
+    from deeprec_tpu.checkpoint.saver import table_snapshot_host
     s = table_snapshot_host(tr.collections["emb"].config,
                             state.tables["emb"].ev, state.tables["emb"].slot,
                             num_shards=tr.S, evict=False)
@@ -103,8 +103,8 @@ def test_two_process_cluster_matches_single_controller(tmp_path):
 
     # table equality: restore the multi-part checkpoint into a
     # single-process trainer with a DIFFERENT shard count (8 -> 4)
-    from deeprec_jax.checkpoint import CheckpointManager
-    from deeprec_jax.parallel.trainer import ShardedTrainer, make_mesh
+    from deeprec_tpu.checkpoint import CheckpointManager
+    from deeprec_tpu.parallel.trainer import ShardedTrainer, make_mesh
 
     tr_r = ShardedTrainer(mesh=make_mesh(4), **make_common())
     st_r = tr_r.init(jax.random.key(0), global_batch(0))
@@ -129,10 +129,10 @@ def test_two_process_cluster_matches_single_controller(tmp_path):
 def _tiered_baseline(tmp_path):
     """Single-controller 8-device tiered run of the same global stream,
     with the same demotion schedule as mp_worker."""
-    from deeprec_jax.checkpoint import CheckpointManager
-    from deeprec_jax.parallel.tiered import TieredShardedTrainer
-    from deeprec_jax.parallel.trainer import make_mesh
-    from deeprec_jax.train import metrics as M
+    from deeprec_tpu.checkpoint import CheckpointManager
+    from deeprec_tpu.parallel.tiered import TieredShardedTrainer
+    from deeprec_tpu.parallel.trainer import make_mesh
+    from deeprec_tpu.train import metrics as M
 
     tr = TieredShardedTrainer(mesh=make_mesh(8), **make_common(tiered=True))
     state = tr.init(jax.random.key(0), global_batch(0))
@@ -151,7 +151,7 @@ def _ckpt_rows(ckpt):
     stayed behind — the restore path reconciles by version). Values carry
     as float arrays so callers can compare within a ULP tolerance
     (cross-deployment collective reduction order differs)."""
-    from deeprec_jax.checkpoint import format as F
+    from deeprec_tpu.checkpoint import format as F
     base, _ = F.restore_plan(ckpt)
     dev = F.read_table(base["path"], "emb")
     out = {}
@@ -205,9 +205,9 @@ def test_two_process_tiered_cluster(tmp_path):
 
     # restore the 2-process ckpt at the SAME shard count: the per-shard CBF
     # sketches restore exactly, so admission behavior cannot diverge
-    from deeprec_jax.checkpoint import CheckpointManager
-    from deeprec_jax.parallel.tiered import TieredShardedTrainer
-    from deeprec_jax.parallel.trainer import make_mesh
+    from deeprec_tpu.checkpoint import CheckpointManager
+    from deeprec_tpu.parallel.tiered import TieredShardedTrainer
+    from deeprec_tpu.parallel.trainer import make_mesh
     tr_r = TieredShardedTrainer(mesh=make_mesh(8), **make_common(tiered=True))
     st_r = tr_r.init(jax.random.key(0), global_batch(0))
     st_r, ok = CheckpointManager(ckpt).restore(tr_r, st_r)
@@ -245,15 +245,15 @@ def test_two_process_host_sharded_matches_single_controller(tmp_path):
     host-sharded run bit-for-bit on metrics and tables — and its
     multi-part checkpoint must restore into the DEVICE-index engine at a
     different shard count (the cross-engine interchange contract)."""
-    from deeprec_jax.utils.native import get_lib
+    from deeprec_tpu.utils.native import get_lib
     if get_lib() is None:
         pytest.skip("native toolchain unavailable")
     ckpt, outs, logs = _spawn_cluster(tmp_path, nproc=2, dev_per=4,
                                       host_index=True)
 
     # baseline: single-controller 8-device HOST-sharded run, same stream
-    from deeprec_jax.parallel.trainer import ShardedTrainer, make_mesh
-    from deeprec_jax.train import metrics as M
+    from deeprec_tpu.parallel.trainer import ShardedTrainer, make_mesh
+    from deeprec_tpu.train import metrics as M
     tr_b = ShardedTrainer(mesh=make_mesh(8), **make_common(host_index=True))
     st_b = tr_b.init(jax.random.key(0), global_batch(0))
     for i in range(STEPS):
@@ -269,7 +269,7 @@ def test_two_process_host_sharded_matches_single_controller(tmp_path):
 
     # table equality: per-key values/freqs/versions/slot rows
     sb = _snap_host_sharded(tr_b, st_b)
-    from deeprec_jax.checkpoint import format as F
+    from deeprec_tpu.checkpoint import format as F
     base, _ = F.restore_plan(ckpt)
     mp_tab = F.read_table(base["path"], "emb")
     o = np.argsort(mp_tab["keys"])
@@ -285,7 +285,7 @@ def test_two_process_host_sharded_matches_single_controller(tmp_path):
 
     # cross-engine + cross-shard-count restore: 2-process host-sharded
     # checkpoint -> single-process 4-shard DEVICE-index trainer
-    from deeprec_jax.checkpoint import CheckpointManager
+    from deeprec_tpu.checkpoint import CheckpointManager
     tr_r = ShardedTrainer(mesh=make_mesh(4), **make_common())
     st_r = tr_r.init(jax.random.key(0), global_batch(0))
     st_r, ok = CheckpointManager(ckpt).restore(tr_r, st_r)

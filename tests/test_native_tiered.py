@@ -8,12 +8,12 @@ import pytest
 
 import jax.numpy as jnp
 
-import deeprec_jax as dr
-from deeprec_jax.config import EmbeddingVariableConfig, GlobalStepEvict
-from deeprec_jax.sparse import embedding_var as ev
-from deeprec_jax.sparse import keys as K
-from deeprec_jax.sparse.tiered import TieredTable
-from deeprec_jax.utils.native import HostKV, criteo_parse_chunk, get_lib
+import deeprec_tpu as dr
+from deeprec_tpu.config import EmbeddingVariableConfig, GlobalStepEvict
+from deeprec_tpu.sparse import embedding_var as ev
+from deeprec_tpu.sparse import keys as K
+from deeprec_tpu.sparse.tiered import TieredTable
+from deeprec_tpu.utils.native import HostKV, criteo_parse_chunk, get_lib
 
 pytestmark = pytest.mark.skipif(get_lib() is None,
                                 reason="native toolchain unavailable")
@@ -79,7 +79,7 @@ def test_criteo_native_parser(tmp_path):
 
 
 def test_read_criteo_native_matches_python_structure(tmp_path):
-    from deeprec_jax.data.criteo import read_criteo, read_criteo_native
+    from deeprec_tpu.data.criteo import read_criteo, read_criteo_native
     p = tmp_path / "day.tsv"
     rows = []
     for r in range(37):
@@ -114,7 +114,7 @@ def test_tiered_demote_promote_roundtrip():
     st, perm = table.demote(st, global_step=5)
     assert table.host_rows() == 3
     # rows are gone from HBM
-    from deeprec_jax.sparse import hashtable as ht
+    from deeprec_tpu.sparse import hashtable as ht
     slots, found = ht.lookup(st.index, hot)
     assert not bool(found.any())
 

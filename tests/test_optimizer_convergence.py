@@ -9,12 +9,12 @@ import pytest
 
 import jax
 
-import deeprec_jax as dr
-from deeprec_jax import feature_column as fc
-from deeprec_jax.models import ctr
-from deeprec_jax.optim import sparse as sopt
-from deeprec_jax.train import metrics as M
-from deeprec_jax.train.trainer import Trainer
+import deeprec_tpu as dr
+from deeprec_tpu import feature_column as fc
+from deeprec_tpu.models import ctr
+from deeprec_tpu.optim import sparse as sopt
+from deeprec_tpu.train import metrics as M
+from deeprec_tpu.train.trainer import Trainer
 
 CATS = ["C1", "C2"]
 

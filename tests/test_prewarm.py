@@ -16,12 +16,12 @@ import numpy as np
 import optax
 import pytest
 
-import deeprec_jax as dr
-from deeprec_jax import feature_column as fc
-from deeprec_jax.models import ctr
-from deeprec_jax.optim import sparse as sopt
-from deeprec_jax.train.trainer import Trainer
-from deeprec_jax.utils import compile_cache
+import deeprec_tpu as dr
+from deeprec_tpu import feature_column as fc
+from deeprec_tpu.models import ctr
+from deeprec_tpu.optim import sparse as sopt
+from deeprec_tpu.train.trainer import Trainer
+from deeprec_tpu.utils import compile_cache
 
 CATS = ["C1", "C2"]
 

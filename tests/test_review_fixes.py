@@ -7,14 +7,14 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-import deeprec_jax as dr
-from deeprec_jax import feature_column as fc
-from deeprec_jax.checkpoint import CheckpointManager
-from deeprec_jax.config import StorageOption, StorageType
-from deeprec_jax.models import ctr
-from deeprec_jax.optim import sparse as sopt
-from deeprec_jax.train.tiered_trainer import TieredTrainer
-from deeprec_jax.train.trainer import Trainer
+import deeprec_tpu as dr
+from deeprec_tpu import feature_column as fc
+from deeprec_tpu.checkpoint import CheckpointManager
+from deeprec_tpu.config import StorageOption, StorageType
+from deeprec_tpu.models import ctr
+from deeprec_tpu.optim import sparse as sopt
+from deeprec_tpu.train.tiered_trainer import TieredTrainer
+from deeprec_tpu.train.trainer import Trainer
 
 CATS = ["C1"]
 
@@ -42,7 +42,7 @@ def _batch(rng, ids, bs=16):
 
 
 def _row_of(tr, state, key):
-    from deeprec_jax.checkpoint.saver import table_snapshot_host
+    from deeprec_tpu.checkpoint.saver import table_snapshot_host
     snap = table_snapshot_host(tr.collections["emb"].config,
                                state.tables["emb"].ev,
                                state.tables["emb"].slot, evict=False)
@@ -122,7 +122,7 @@ def test_saturation_detected_with_padding(tmp_path):
 def test_predictor_serves_demoted_rows(tmp_path):
     """A Predictor over a tiered checkpoint must serve demoted keys with
     their trained embeddings, not default-init rows."""
-    from deeprec_jax.serving import Predictor
+    from deeprec_tpu.serving import Predictor
 
     tr = TieredTrainer(**_common())
     rng = np.random.default_rng(0)

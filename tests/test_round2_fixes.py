@@ -8,15 +8,15 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-import deeprec_jax as dr
-from deeprec_jax import feature_column as fc
-from deeprec_jax.config import (CounterFilter, EmbeddingVariableConfig,
+import deeprec_tpu as dr
+from deeprec_tpu import feature_column as fc
+from deeprec_tpu.config import (CounterFilter, EmbeddingVariableConfig,
                                 Initializer)
-from deeprec_jax.optim import sparse as sopt
-from deeprec_jax.sparse import embedding_var as ev
-from deeprec_jax.sparse import hashtable as ht
-from deeprec_jax.sparse import keys as K
-from deeprec_jax.sparse import tier_payload as TP
+from deeprec_tpu.optim import sparse as sopt
+from deeprec_tpu.sparse import embedding_var as ev
+from deeprec_tpu.sparse import hashtable as ht
+from deeprec_tpu.sparse import keys as K
+from deeprec_tpu.sparse import tier_payload as TP
 
 
 # ---------------------------------------------------------------------------
@@ -99,7 +99,7 @@ def test_grow_then_late_admission_zero_grad_is_finite():
 def test_tier_payload_bitpattern_roundtrip():
     """freq/version/create_step and integer slot leaves survive the f32
     payload exactly, including values far above 2^24."""
-    from deeprec_jax.train.trainer import TableBundle
+    from deeprec_tpu.train.trainer import TableBundle
 
     cfg = EmbeddingVariableConfig(name="t", embedding_dim=4, capacity=32,
                                   lazy_init=False)
@@ -172,7 +172,7 @@ def test_insert_never_claims_past_probe_bound():
 
 
 def test_write_save_crash_between_renames_recovers(tmp_path):
-    from deeprec_jax.checkpoint import format as F
+    from deeprec_tpu.checkpoint import format as F
 
     d = str(tmp_path)
     path = os.path.join(d, F.step_dirname("full", 5))

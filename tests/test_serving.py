@@ -6,14 +6,14 @@ import optax
 
 import jax
 
-import deeprec_jax as dr
-from deeprec_jax import feature_column as fc
-from deeprec_jax.checkpoint import CheckpointManager
-from deeprec_jax.data.criteo import CAT_NAMES, DENSE_NAMES, SyntheticCriteo
-from deeprec_jax.models import ctr
-from deeprec_jax.optim import sparse as sopt
-from deeprec_jax.serving import Predictor
-from deeprec_jax.train.trainer import Trainer
+import deeprec_tpu as dr
+from deeprec_tpu import feature_column as fc
+from deeprec_tpu.checkpoint import CheckpointManager
+from deeprec_tpu.data.criteo import CAT_NAMES, DENSE_NAMES, SyntheticCriteo
+from deeprec_tpu.models import ctr
+from deeprec_tpu.optim import sparse as sopt
+from deeprec_tpu.serving import Predictor
+from deeprec_tpu.train.trainer import Trainer
 
 N_CAT, N_DENSE = 4, 3
 
@@ -55,12 +55,12 @@ def test_predictor_matches_trainer_eval(tmp_path):
 
     # parity with the trainer's own forward on the same state
     import jax.numpy as jnp
-    from deeprec_jax.train import metrics as M
+    from deeprec_tpu.train import metrics as M
     dense, cats, labels = tr.prepare_batch(bs[4])
     m = tr._jit_eval(state, M.create(), dense, cats, labels)
     # recompute the trainer logits directly for comparison
-    from deeprec_jax.feature_column import normalize_dense
-    from deeprec_jax.train.trainer import _readonly_lookup
+    from deeprec_tpu.feature_column import normalize_dense
+    from deeprec_tpu.train.trainer import _readonly_lookup
     d = normalize_dense(numeric, dense)
     aux, urows = _readonly_lookup(coll, state.tables["emb"].ev, cats["emb"])
     emb, _seq = coll.embeddings_readonly(urows, aux)

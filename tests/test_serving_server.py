@@ -11,15 +11,15 @@ import optax
 
 import jax
 
-import deeprec_jax as dr
-from deeprec_jax import feature_column as fc
-from deeprec_jax.checkpoint import CheckpointManager
-from deeprec_jax.data.criteo import CAT_NAMES, DENSE_NAMES, SyntheticCriteo
-from deeprec_jax.models import ctr
-from deeprec_jax.optim import sparse as sopt
-from deeprec_jax.serving import Predictor
-from deeprec_jax.serving.server import batch_from_json, make_server, pad_pow2
-from deeprec_jax.train.trainer import Trainer
+import deeprec_tpu as dr
+from deeprec_tpu import feature_column as fc
+from deeprec_tpu.checkpoint import CheckpointManager
+from deeprec_tpu.data.criteo import CAT_NAMES, DENSE_NAMES, SyntheticCriteo
+from deeprec_tpu.models import ctr
+from deeprec_tpu.optim import sparse as sopt
+from deeprec_tpu.serving import Predictor
+from deeprec_tpu.serving.server import batch_from_json, make_server, pad_pow2
+from deeprec_tpu.train.trainer import Trainer
 
 N_CAT, N_DENSE = 4, 3
 
@@ -137,7 +137,7 @@ def test_predictor_adopts_fused_row_layout(tmp_path):
     stored width."""
     import dataclasses
 
-    from deeprec_jax.optim.sparse import sparse_adagrad_fused
+    from deeprec_tpu.optim.sparse import sparse_adagrad_fused
 
     numeric, coll, model = _make_parts()
     coll.config = dataclasses.replace(coll.config, fused_slot_columns=8,
@@ -158,8 +158,8 @@ def test_predictor_adopts_fused_row_layout(tmp_path):
     probs = pred.predict(bs[4])
 
     # parity with the trainer's own eval forward on the same state
-    from deeprec_jax.feature_column import normalize_dense
-    from deeprec_jax.train.trainer import _readonly_lookup
+    from deeprec_tpu.feature_column import normalize_dense
+    from deeprec_tpu.train.trainer import _readonly_lookup
     dense, cats, _ = tr.prepare_batch(bs[4])
     d = normalize_dense(numeric, dense)
     aux, urows = _readonly_lookup(coll, state.tables["emb"].ev, cats["emb"])

@@ -7,17 +7,17 @@ import numpy as np
 import optax
 import pytest
 
-import deeprec_jax as dr
-from deeprec_jax import feature_column as fc
-from deeprec_jax.data.criteo import CAT_NAMES, DENSE_NAMES, SyntheticCriteo
-from deeprec_jax.models import ctr
-from deeprec_jax.optim import sparse as sopt
-from deeprec_jax.parallel import sharded
-from deeprec_jax.parallel.trainer import ShardedTrainer, make_mesh
-from deeprec_jax.sparse import embedding_var as ev
-from deeprec_jax.sparse import keys as K
-from deeprec_jax.train import metrics as metrics_lib
-from deeprec_jax.train.trainer import Trainer
+import deeprec_tpu as dr
+from deeprec_tpu import feature_column as fc
+from deeprec_tpu.data.criteo import CAT_NAMES, DENSE_NAMES, SyntheticCriteo
+from deeprec_tpu.models import ctr
+from deeprec_tpu.optim import sparse as sopt
+from deeprec_tpu.parallel import sharded
+from deeprec_tpu.parallel.trainer import ShardedTrainer, make_mesh
+from deeprec_tpu.sparse import embedding_var as ev
+from deeprec_tpu.sparse import keys as K
+from deeprec_tpu.train import metrics as metrics_lib
+from deeprec_tpu.train.trainer import Trainer
 
 N_CAT = 6
 EMB_DIM = 8

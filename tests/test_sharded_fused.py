@@ -4,13 +4,13 @@ import optax
 
 import jax
 
-import deeprec_jax as dr
-from deeprec_jax import feature_column as fc
-from deeprec_jax.data.criteo import CAT_NAMES, DENSE_NAMES, SyntheticCriteo
-from deeprec_jax.models import ctr
-from deeprec_jax.optim import sparse as sopt
-from deeprec_jax.parallel.trainer import ShardedTrainer, make_mesh
-from deeprec_jax.train import metrics as M
+import deeprec_tpu as dr
+from deeprec_tpu import feature_column as fc
+from deeprec_tpu.data.criteo import CAT_NAMES, DENSE_NAMES, SyntheticCriteo
+from deeprec_tpu.models import ctr
+from deeprec_tpu.optim import sparse as sopt
+from deeprec_tpu.parallel.trainer import ShardedTrainer, make_mesh
+from deeprec_tpu.train import metrics as M
 
 DIM = 8
 
@@ -45,7 +45,7 @@ def test_sharded_fused_matches_unfused():
         state = tr.init(jax.random.key(0), bs[0])
         for b in bs[:4]:
             state = tr.train_step(state, b)
-        from deeprec_jax.checkpoint.saver import table_snapshot_host
+        from deeprec_tpu.checkpoint.saver import table_snapshot_host
         snap = table_snapshot_host(tr.collections["emb"].config,
                                    state.tables["emb"].ev,
                                    state.tables["emb"].slot,

@@ -10,13 +10,13 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-import deeprec_jax as dr
-from deeprec_jax import feature_column as fc
-from deeprec_jax.config import CounterFilter
-from deeprec_jax.models import ctr
-from deeprec_jax.optim import sparse as sopt
-from deeprec_jax.parallel.trainer import ShardedTrainer, make_mesh
-from deeprec_jax.train.trainer import Trainer
+import deeprec_tpu as dr
+from deeprec_tpu import feature_column as fc
+from deeprec_tpu.config import CounterFilter
+from deeprec_tpu.models import ctr
+from deeprec_tpu.optim import sparse as sopt
+from deeprec_tpu.parallel.trainer import ShardedTrainer, make_mesh
+from deeprec_tpu.train.trainer import Trainer
 
 CATS = ["C1", "C2"]
 
@@ -147,7 +147,7 @@ def test_freq_semantics_identical_local_vs_sharded():
     """CounterFilter admission must not change when a run adds --mesh: freq
     counts within-batch MULTIPLICITY (reference AddFreq(count)) on BOTH
     trainers — the exchange routes the per-requester counts to the owner."""
-    from deeprec_jax.checkpoint.saver import table_snapshot_host
+    from deeprec_tpu.checkpoint.saver import table_snapshot_host
 
     ids = np.asarray([5, 5, 5, 7, 7, 9], np.int64)  # multiplicities 3/2/1
     tr_l = _make(Trainer, filter_freq=2)

@@ -6,13 +6,13 @@ import pytest
 
 import jax
 
-import deeprec_jax as dr
-from deeprec_jax import feature_column as fc
-from deeprec_jax.checkpoint import CheckpointManager
-from deeprec_jax.models import ctr
-from deeprec_jax.optim import sparse as sopt
-from deeprec_jax.parallel.trainer import ShardedTrainer, make_mesh
-from deeprec_jax.serving.predictor import Predictor, ShardedPredictor
+import deeprec_tpu as dr
+from deeprec_tpu import feature_column as fc
+from deeprec_tpu.checkpoint import CheckpointManager
+from deeprec_tpu.models import ctr
+from deeprec_tpu.optim import sparse as sopt
+from deeprec_tpu.parallel.trainer import ShardedTrainer, make_mesh
+from deeprec_tpu.serving.predictor import Predictor, ShardedPredictor
 
 CATS = ["C1", "C2"]
 

@@ -5,14 +5,14 @@ import pytest
 
 import jax
 
-import deeprec_jax as dr
-from deeprec_jax.config import StorageOption, StorageType
-from deeprec_jax import feature_column as fc
-from deeprec_jax.models import ctr
-from deeprec_jax.optim import sparse as sopt
-from deeprec_jax.parallel.tiered import TieredShardedTrainer
-from deeprec_jax.parallel.trainer import make_mesh
-from deeprec_jax.utils.native import get_lib
+import deeprec_tpu as dr
+from deeprec_tpu.config import StorageOption, StorageType
+from deeprec_tpu import feature_column as fc
+from deeprec_tpu.models import ctr
+from deeprec_tpu.optim import sparse as sopt
+from deeprec_tpu.parallel.tiered import TieredShardedTrainer
+from deeprec_tpu.parallel.trainer import make_mesh
+from deeprec_tpu.utils.native import get_lib
 
 pytestmark = pytest.mark.skipif(get_lib() is None,
                                 reason="native toolchain unavailable")
@@ -46,7 +46,7 @@ def batch_with(ids, bs=16):
 
 def global_rows(tr, state, ids):
     """values rows for C1-salted ids, searched across all shards."""
-    from deeprec_jax.checkpoint.saver import table_snapshot_host
+    from deeprec_tpu.checkpoint.saver import table_snapshot_host
     coll = tr.collections["emb"]
     snap = table_snapshot_host(coll.config, state.tables["emb"].ev,
                                state.tables["emb"].slot, num_shards=tr.S,
@@ -64,7 +64,7 @@ def test_sharded_budget_pressure_demotion():
     """``hbm_capacity`` (total across the mesh) splits into per-shard
     budgets; with NO eviction policy every shard demotes its LRU excess
     and the rows return intact when their ids recur."""
-    from deeprec_jax.checkpoint.saver import table_snapshot_host
+    from deeprec_tpu.checkpoint.saver import table_snapshot_host
     cols = [fc.EmbeddingColumn(fc.CategoricalColumn(n), 8) for n in CATS]
     coll = fc.EmbeddingCollection(
         cols, name="emb", capacity=256,

@@ -8,14 +8,14 @@ import pytest
 
 import jax
 
-import deeprec_jax as dr
-from deeprec_jax import feature_column as fc
-from deeprec_jax.checkpoint import CheckpointManager
-from deeprec_jax.config import StorageOption, StorageType
-from deeprec_jax.models import ctr
-from deeprec_jax.optim import sparse as sopt
-from deeprec_jax.train.tiered_trainer import TieredTrainer
-from deeprec_jax.utils.native import HostKV, TierStack, get_lib
+import deeprec_tpu as dr
+from deeprec_tpu import feature_column as fc
+from deeprec_tpu.checkpoint import CheckpointManager
+from deeprec_tpu.config import StorageOption, StorageType
+from deeprec_tpu.models import ctr
+from deeprec_tpu.optim import sparse as sopt
+from deeprec_tpu.train.tiered_trainer import TieredTrainer
+from deeprec_tpu.utils.native import HostKV, TierStack, get_lib
 
 CATS = ["C1"]
 

@@ -8,15 +8,15 @@ import pytest
 
 import jax
 
-import deeprec_jax as dr
-from deeprec_jax import feature_column as fc
-from deeprec_jax.checkpoint import CheckpointManager
-from deeprec_jax.config import StorageOption, StorageType
-from deeprec_jax.models import ctr
-from deeprec_jax.optim import sparse as sopt
-from deeprec_jax.parallel.tiered import TieredShardedTrainer
-from deeprec_jax.parallel.trainer import make_mesh
-from deeprec_jax.train.tiered_trainer import TieredTrainer
+import deeprec_tpu as dr
+from deeprec_tpu import feature_column as fc
+from deeprec_tpu.checkpoint import CheckpointManager
+from deeprec_tpu.config import StorageOption, StorageType
+from deeprec_tpu.models import ctr
+from deeprec_tpu.optim import sparse as sopt
+from deeprec_tpu.parallel.tiered import TieredShardedTrainer
+from deeprec_tpu.parallel.trainer import make_mesh
+from deeprec_tpu.train.tiered_trainer import TieredTrainer
 
 CATS = ["C1", "C2"]
 
@@ -109,7 +109,7 @@ def test_tier_rows_in_incremental_saves(tmp_path):
     # cold rows were on-device in the base full; restore puts them either
     # on-device or in the tier, but their state must exist exactly once and
     # a lookup must see the trained values
-    from deeprec_jax.checkpoint.saver import table_snapshot_host
+    from deeprec_tpu.checkpoint.saver import table_snapshot_host
     snap = table_snapshot_host(tr2.collections["emb"].config,
                                st2.tables["emb"].ev, st2.tables["emb"].slot,
                                num_shards=1, evict=False)

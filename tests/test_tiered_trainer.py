@@ -6,13 +6,13 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-import deeprec_jax as dr
-from deeprec_jax.config import StorageOption, StorageType
-from deeprec_jax import feature_column as fc
-from deeprec_jax.models import ctr
-from deeprec_jax.optim import sparse as sopt
-from deeprec_jax.train.tiered_trainer import TieredTrainer
-from deeprec_jax.utils.native import get_lib
+import deeprec_tpu as dr
+from deeprec_tpu.config import StorageOption, StorageType
+from deeprec_tpu import feature_column as fc
+from deeprec_tpu.models import ctr
+from deeprec_tpu.optim import sparse as sopt
+from deeprec_tpu.train.tiered_trainer import TieredTrainer
+from deeprec_tpu.utils.native import get_lib
 
 pytestmark = pytest.mark.skipif(get_lib() is None,
                                 reason="native toolchain unavailable")
@@ -46,7 +46,7 @@ def batch_with(ids, bs=8):
 
 def snapshot_rows(tr, state, ids):
     """value rows + adagrad acc rows for given raw ids of column C1."""
-    from deeprec_jax.sparse import hashtable as ht, keys as K
+    from deeprec_tpu.sparse import hashtable as ht, keys as K
     coll = tr.collections["emb"]
     flat = coll.pack_ids_np(batch_with(ids, bs=len(ids)))[0]  # C1 row
     keys = K.from_numpy(flat)
@@ -95,7 +95,7 @@ def test_training_consistency_with_and_without_tier():
     s1 = tr.init(jax.random.key(0), bs[0])
     for b in bs:
         s1 = tr.train_step(s1, b)
-    from deeprec_jax.train.trainer import Trainer
+    from deeprec_tpu.train.trainer import Trainer
     cols = [fc.EmbeddingColumn(fc.CategoricalColumn(n), 8) for n in CATS]
     coll = fc.EmbeddingCollection(
         cols, name="emb", capacity=256,
@@ -156,9 +156,9 @@ def test_tiered_storage_implies_version_tracking():
     """Demotion ranks coldness by the version plane and tier restore
     reconciles by version — a tiered table with NO eviction policy must
     still stamp versions (the light layout would rank garbage)."""
-    import deeprec_jax as dr
-    from deeprec_jax import feature_column as fc
-    from deeprec_jax.config import StorageOption, StorageType
+    import deeprec_tpu as dr
+    from deeprec_tpu import feature_column as fc
+    from deeprec_tpu.config import StorageOption, StorageType
 
     col = fc.EmbeddingColumn(fc.CategoricalColumn("c"), 4)
     coll = fc.EmbeddingCollection(

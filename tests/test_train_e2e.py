@@ -6,13 +6,13 @@ import numpy as np
 import optax
 import pytest
 
-import deeprec_jax as dr
-from deeprec_jax import feature_column as fc
-from deeprec_jax.data.criteo import CAT_NAMES, DENSE_NAMES, SyntheticCriteo
-from deeprec_jax.models import ctr
-from deeprec_jax.optim import sparse as sopt
-from deeprec_jax.train import metrics as metrics_lib
-from deeprec_jax.train.trainer import Trainer
+import deeprec_tpu as dr
+from deeprec_tpu import feature_column as fc
+from deeprec_tpu.data.criteo import CAT_NAMES, DENSE_NAMES, SyntheticCriteo
+from deeprec_tpu.models import ctr
+from deeprec_tpu.optim import sparse as sopt
+from deeprec_tpu.train import metrics as metrics_lib
+from deeprec_tpu.train.trainer import Trainer
 
 
 N_CAT = 6  # small slice of the 26 for CPU test speed

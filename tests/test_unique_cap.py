@@ -4,8 +4,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from deeprec_jax.ops.unique import unique
-from deeprec_jax.sparse import keys as K
+from deeprec_tpu.ops.unique import unique
+from deeprec_tpu.sparse import keys as K
 
 
 def u64(*vals):

@@ -7,8 +7,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from deeprec_jax.ops.unique import unique, unique_cols
-from deeprec_jax.sparse import keys as K
+from deeprec_tpu.ops.unique import unique, unique_cols
+from deeprec_tpu.sparse import keys as K
 
 
 def _keys2d(arr):

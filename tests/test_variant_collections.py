@@ -5,17 +5,17 @@ import optax
 import jax
 import jax.numpy as jnp
 
-import deeprec_jax as dr
-from deeprec_jax import feature_column as fc
-from deeprec_jax.feature_column_variants import (AdaptiveCollection,
+import deeprec_tpu as dr
+from deeprec_tpu import feature_column as fc
+from deeprec_tpu.feature_column_variants import (AdaptiveCollection,
                                                  DynamicDimCollection,
                                                  MultiHashCollection)
-from deeprec_jax.models import ctr
-from deeprec_jax.optim import sparse as sopt
-from deeprec_jax.sparse.dynamicdim import DynamicDimConfig
-from deeprec_jax.train import metrics as M
-from deeprec_jax.train.trainer import Trainer
-from deeprec_jax.data.criteo import SyntheticCriteo, CAT_NAMES, DENSE_NAMES
+from deeprec_tpu.models import ctr
+from deeprec_tpu.optim import sparse as sopt
+from deeprec_tpu.sparse.dynamicdim import DynamicDimConfig
+from deeprec_tpu.train import metrics as M
+from deeprec_tpu.train.trainer import Trainer
+from deeprec_tpu.data.criteo import SyntheticCriteo, CAT_NAMES, DENSE_NAMES
 
 N_CAT, N_DENSE = 4, 3
 
@@ -93,7 +93,7 @@ def test_dynamicdim_collection_trains():
 
 
 def test_variant_checkpoint_roundtrip(tmp_path):
-    from deeprec_jax.checkpoint import CheckpointManager
+    from deeprec_tpu.checkpoint import CheckpointManager
     coll = MultiHashCollection(cols(), table_sizes=(128, 32))
     tr = make_trainer(coll)
     bs = batches(5)

@@ -13,20 +13,20 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-import deeprec_jax as dr
-from deeprec_jax import feature_column as fc
-from deeprec_jax.checkpoint import CheckpointManager
-from deeprec_jax.data.criteo import CAT_NAMES, DENSE_NAMES, SyntheticCriteo
-from deeprec_jax.feature_column_variants import (AdaptiveCollection,
+import deeprec_tpu as dr
+from deeprec_tpu import feature_column as fc
+from deeprec_tpu.checkpoint import CheckpointManager
+from deeprec_tpu.data.criteo import CAT_NAMES, DENSE_NAMES, SyntheticCriteo
+from deeprec_tpu.feature_column_variants import (AdaptiveCollection,
                                                  DynamicDimCollection,
                                                  MultiHashCollection)
-from deeprec_jax.models import ctr
-from deeprec_jax.optim import sparse as sopt
-from deeprec_jax.parallel.trainer import ShardedTrainer, make_mesh
-from deeprec_jax.sparse.dynamicdim import DynamicDimConfig
-from deeprec_jax.train import metrics as M
-from deeprec_jax.train.trainer import Trainer
-from deeprec_jax.checkpoint.saver import table_snapshot_host
+from deeprec_tpu.models import ctr
+from deeprec_tpu.optim import sparse as sopt
+from deeprec_tpu.parallel.trainer import ShardedTrainer, make_mesh
+from deeprec_tpu.sparse.dynamicdim import DynamicDimConfig
+from deeprec_tpu.train import metrics as M
+from deeprec_tpu.train.trainer import Trainer
+from deeprec_tpu.checkpoint.saver import table_snapshot_host
 
 N_CAT, N_DENSE = 4, 3
 
@@ -183,7 +183,7 @@ def test_variant_save_on_4_restore_on_2(tmp_path, make_coll):
 
 
 def ht_coll(capacity=1 << 10, admit=None):
-    from deeprec_jax.feature_column_variants import HashTableCollection
+    from deeprec_tpu.feature_column_variants import HashTableCollection
     return HashTableCollection(cols(), name="emb", capacity=capacity,
                                admit=admit,
                                initializer=dr.Initializer("normal",
@@ -253,8 +253,8 @@ def test_hashtable_collection_sharded_grow_under_load():
 def test_hashtable_collection_save_on_4_restore_on_2(tmp_path):
     """Reshard-restore equality for the second KV stack: per-key rows
     survive a 4 -> 2 shard change (ids re-allocate per shard)."""
-    from deeprec_jax.sparse import hash_table_api as hta
-    from deeprec_jax.sparse import keys as K
+    from deeprec_tpu.sparse import hash_table_api as hta
+    from deeprec_tpu.sparse import keys as K
     tr4 = make_trainer(ht_coll(), mesh_devices=4)
     bs = batches(6)
     st4 = tr4.init(jax.random.key(0), bs[0])

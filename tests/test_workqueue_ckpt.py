@@ -16,13 +16,13 @@ import pytest
 import jax
 import optax
 
-import deeprec_jax as dr
-from deeprec_jax import feature_column as fc
-from deeprec_jax.checkpoint.saver import CheckpointManager
-from deeprec_jax.data.work_queue import WorkQueue
-from deeprec_jax.models import ctr
-from deeprec_jax.optim import sparse as sopt
-from deeprec_jax.train.trainer import Trainer
+import deeprec_tpu as dr
+from deeprec_tpu import feature_column as fc
+from deeprec_tpu.checkpoint.saver import CheckpointManager
+from deeprec_tpu.data.work_queue import WorkQueue
+from deeprec_tpu.models import ctr
+from deeprec_tpu.optim import sparse as sopt
+from deeprec_tpu.train.trainer import Trainer
 
 
 def _tiny_trainer():
@@ -132,8 +132,8 @@ def test_snapshot_restore_memory_mode():
 def test_cli_stream_rewinds_from_checkpoint(tmp_path):
     """criteo_train_stream applies the newest checkpoint's queue snapshot
     BEFORE any claim (so the restored run re-reads lost files)."""
-    from deeprec_jax.data.criteo import SyntheticCriteo
-    from deeprec_jax.train import cli
+    from deeprec_tpu.data.criteo import SyntheticCriteo
+    from deeprec_tpu.train import cli
 
     # two tiny criteo files
     files = []
